@@ -1,14 +1,17 @@
-"""Command-line entry point of the port (the ``hyvideo-t2v`` subcommand of
-``jenga_tpu.cli``, with the same flag names).
+"""Command-line entry point of the port (the ``hyvideo-t2v`` and
+``wan-t2v`` subcommands of ``jenga_tpu.cli``, with the same flag names).
 
 Usage:
   python -m jenga_tpu_torch.cli hyvideo-t2v --preset base --latents-only \
       --video-size 1280 720 --video-length 33 --infer-steps 8 \
       --save-path out.npy
+  python -m jenga_tpu_torch.cli wan-t2v --preset 1.3b-base --latents-only \
+      --infer-steps 8 --save-path out.npy
 
 The port has no checkpoints, text encoders or VAE yet: the DiT runs from
 a seeded random init on the device, the text states are zero embeddings
-of length 256, and the output is the final latents (.npy).
+(256 tokens for HunyuanVideo; 64 for Wan, padded to its ``text_len``),
+and the output is the final latents (.npy).
 """
 
 from __future__ import annotations
@@ -26,30 +29,41 @@ def _q_group_arg(s: str) -> int:
     return v
 
 
+def _common(p: argparse.ArgumentParser):
+    p.add_argument("--infer-steps", type=int, default=None)
+    p.add_argument("--video-size", type=int, nargs=2, default=None,
+                   metavar=("W", "H"))
+    p.add_argument("--video-length", type=int, default=None)
+    p.add_argument("--q-group", type=_q_group_arg, default=None,
+                   help="query blocks that share one KV block list "
+                        "(presets: 8; 1 = per-row selection)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny random model (smoke runs)")
+    p.add_argument("--latents-only", action="store_true",
+                   help="dump latents .npy (the only output until the VAE "
+                        "is ported)")
+    p.add_argument("--save-path", type=str, default="output.npy")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("jenga_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     h = sub.add_parser("hyvideo-t2v", help="HunyuanVideo text-to-video")
     h.add_argument("--preset", default="base",
                    choices=["base", "turbo", "flash", "3stage", "accvideo"])
-    h.add_argument("--infer-steps", type=int, default=None)
-    h.add_argument("--video-size", type=int, nargs=2, default=None,
-                   metavar=("W", "H"))
-    h.add_argument("--video-length", type=int, default=None)
-    h.add_argument("--q-group", type=_q_group_arg, default=None,
-                   help="query blocks that share one KV block list "
-                        "(presets: 8; 1 = per-row selection)")
+    _common(h)
     h.add_argument("--no-joint-sel", action="store_true",
                    help="with --q-group > 1: per-row selection with union "
                         "lists (needs the membership mode, not ported yet)")
-    h.add_argument("--seed", type=int, default=0)
-    h.add_argument("--tiny", action="store_true",
-                   help="tiny random model (smoke runs)")
-    h.add_argument("--latents-only", action="store_true",
-                   help="dump latents .npy (the only output until the VAE "
-                        "is ported)")
-    h.add_argument("--save-path", type=str, default="output.npy")
-    h.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    w = sub.add_parser("wan-t2v", help="Wan2.1 text-to-video")
+    w.add_argument("--preset", default="1.3b-base",
+                   choices=["1.3b-base", "1.3b-turbo", "14b-base",
+                            "14b-turbo"])
+    _common(w)
+    w.add_argument("--sa-drop-rates", type=float, nargs="+", default=None)
+    w.add_argument("--teacache-thresh", type=float, default=None)
     return ap
 
 
@@ -59,6 +73,21 @@ def _tiny_config():
                          single_blocks=1, rope_dim_list=(16, 24, 24),
                          text_states_dim=64, text_states_dim_2=24,
                          refiner_depth=1, dtype="float32")
+
+
+def _tiny_wan_config():
+    from .models.wan import WanConfig
+    return WanConfig(dim=128, ffn_dim=256, freq_dim=32, num_heads=2,
+                     num_layers=2, text_dim=64, text_len=16, dtype="float32")
+
+
+def _save_latents(args, out, t0):
+    import numpy as np
+    out = out.cpu()     # waits for the device
+    print(json.dumps({"gen_time_s": round(time.time() - t0, 2)}))
+    path = args.save_path.rsplit(".", 1)[0] + ".npy"
+    np.save(path, out.numpy())
+    print(f"saved latents to {path}")
 
 
 def run_hyvideo_t2v(args):
@@ -87,17 +116,45 @@ def run_hyvideo_t2v(args):
     mask = np.ones((n,), np.int32)
     txt2 = np.zeros((cfg.text_states_dim_2,), np.float32)
     t0 = time.time()
-    out = sampler.predict(txt, mask, txt2, opts).cpu()  # waits for the device
-    print(json.dumps({"gen_time_s": round(time.time() - t0, 2)}))
-    path = args.save_path.rsplit(".", 1)[0] + ".npy"
-    np.save(path, out.numpy())
-    print(f"saved latents to {path}")
+    _save_latents(args, sampler.predict(txt, mask, txt2, opts), t0)
+
+
+def run_wan_t2v(args):
+    import numpy as np
+    from .configs.presets import get_wan_preset
+    from .models.wan import WAN_T2V_1_3B
+    from .runtime import WanSampler
+
+    over = {"seed": args.seed}
+    if args.infer_steps:
+        over["sampling_steps"] = args.infer_steps
+    if args.video_size:
+        over["size"] = tuple(args.video_size)
+    if args.video_length:
+        over["frame_num"] = args.video_length
+    if args.sa_drop_rates:
+        over["sa_drop_rates"] = tuple(args.sa_drop_rates)
+    if args.q_group is not None:
+        over["q_group"] = args.q_group
+    if args.teacache_thresh is not None:
+        over["teacache_thresh"] = args.teacache_thresh
+    if args.preset.startswith("14b"):
+        raise SystemExit("Wan 14B runs are not ported yet (1.3b-base only)")
+    opts = get_wan_preset(args.preset, **over)
+
+    cfg = _tiny_wan_config() if args.tiny else WAN_T2V_1_3B
+    sampler = WanSampler(cfg, device=args.device, seed=args.seed)
+    ctx = np.zeros((64, cfg.text_dim), np.float32)
+    t0 = time.time()
+    _save_latents(args, sampler.generate(ctx, np.zeros_like(ctx), opts), t0)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "hyvideo-t2v":
         run_hyvideo_t2v(args)
+    elif args.cmd == "wan-t2v":
+        run_wan_t2v(args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
-"""Named HunyuanVideo carving presets over the port's ``HYT2VOptions``.
+"""Named carving presets over the port's ``HYT2VOptions`` and
+``WanT2VOptions``.
 
 Same data as ``jenga_tpu/configs/presets.py`` (which cannot be imported
 here: it pulls in the JAX pipelines). Every preset carries ``q_group=8``,
 joint 8-row group selection; ``--q-group 1`` restores the per-row
-selection. Only ``base`` runs end to end in the port so far: the others
-switch resolution between stages (ProRes), which is not ported yet.
+selection. Only the Base presets (``base``, ``1.3b-base``, ``14b-base``)
+run end to end in the port so far: the others switch resolution between
+stages (ProRes, Wan Turbo), which is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from __future__ import annotations
 import dataclasses
 
 from ..pipelines.hyvideo_t2v import HYT2VOptions
+from ..pipelines.wan_t2v import WanT2VOptions
 
-__all__ = ["HY_PRESETS", "get_hy_preset"]
+__all__ = ["HY_PRESETS", "WAN_PRESETS", "get_hy_preset", "get_wan_preset"]
 
 
 HY_PRESETS: dict[str, HYT2VOptions] = {
@@ -40,5 +43,26 @@ HY_PRESETS: dict[str, HYT2VOptions] = {
 }
 
 
+WAN_PRESETS: dict[str, WanT2VOptions] = {
+    "1.3b-base": WanT2VOptions(
+        q_group=8, sa_drop_rates=(0.75, 0.85), p_remain=0.9, shift=8.0,
+        teacache_thresh=0.15, use_ret_steps=True),
+    "1.3b-turbo": WanT2VOptions(
+        q_group=8, sa_drop_rates=(0.75, 0.85), p_remain=0.9, shift=8.0,
+        enable_turbo=True, teacache_thresh=0.15, use_ret_steps=True),
+    "14b-base": WanT2VOptions(
+        q_group=8, size=(1280, 720), sa_drop_rates=(0.7, 0.8), p_remain=0.8,
+        shift=8.0, teacache_thresh=0.15, use_ret_steps=True),
+    "14b-turbo": WanT2VOptions(
+        q_group=8, size=(1280, 720), sa_drop_rates=(0.5, 0.9), p_remain=0.9,
+        shift=8.0, enable_turbo=True, teacache_thresh=0.15,
+        use_ret_steps=True),
+}
+
+
 def get_hy_preset(name: str, **overrides) -> HYT2VOptions:
     return dataclasses.replace(HY_PRESETS[name.lower()], **overrides)
+
+
+def get_wan_preset(name: str, **overrides) -> WanT2VOptions:
+    return dataclasses.replace(WAN_PRESETS[name.lower()], **overrides)

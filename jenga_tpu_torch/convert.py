@@ -1,12 +1,14 @@
-"""Bridge from the JAX parameter pytree to the port's state dict.
+"""Bridge from the JAX parameter pytrees to the port's state dicts.
 
-``hyvideo_params_from_jax(tree)`` takes the nested dict/list tree of
-``jenga_tpu.models.hyvideo.init_hyvideo_params`` (or a converted
-checkpoint) with numpy leaves and returns a flat ``{name: tensor}`` dict
-for ``HYVideoDiT.load_state_dict``. Names are the tree paths joined with
-dots. JAX ``linear`` weights are ``[in, out]``; the port's are torch-style
-``[out, in]``, and this is the one place that transposes them. Every
-leaf keeps its dtype (bf16 leaves arrive as ml_dtypes arrays).
+``hyvideo_params_from_jax(tree)`` and ``wan_params_from_jax(tree)`` take
+the nested dict/list tree of ``init_hyvideo_params`` / ``init_wan_params``
+(or a converted checkpoint) with numpy leaves and return a flat
+``{name: tensor}`` dict for ``HYVideoDiT`` / ``WanDiT.load_state_dict``.
+Names are the tree paths joined with dots; ``None`` leaves (Wan's
+parameterless head norm) are dropped. JAX ``linear`` weights are
+``[in, out]``; the port's are torch-style ``[out, in]``, and this is the
+one place that transposes them. Every leaf keeps its dtype (bf16 leaves
+arrive as ml_dtypes arrays).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["hyvideo_params_from_jax"]
+__all__ = ["hyvideo_params_from_jax", "wan_params_from_jax"]
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -40,9 +42,18 @@ def _flatten(tree, prefix=""):
 def hyvideo_params_from_jax(tree) -> dict[str, torch.Tensor]:
     out = {}
     for name, leaf in _flatten(tree):
+        if leaf is None:
+            continue
         name = name[:-1]    # drop the trailing dot
         t = _to_tensor(leaf)
         if name.endswith(".w") and t.ndim == 2:
             t = t.T.contiguous()
         out[name] = t
     return out
+
+
+def wan_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The Wan tree's ``head`` becomes the module ``head_layer``."""
+    tree = dict(tree)
+    tree["head_layer"] = tree.pop("head")
+    return hyvideo_params_from_jax(tree)

@@ -27,78 +27,21 @@
 // 8 tiles of a group one identical list so their gathers hit L2, and a
 // 2-stage cp.async ring fetches block j+1 while block j computes. The
 // matrix products are mma.sync m16n8k16 bf16 with f32 accumulators held
-// in registers (wgmma and TMA are left for a later revision).
+// in registers (wgmma and TMA are left for a later revision); the tile
+// loop body is shared with the dense kernel (attn_tile.cuh).
 //
 // Plain C interface (loaded with ctypes); the launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;        // query rows per thread block (one query block)
-constexpr int BN = 128;        // keys per listed block
-constexpr int D = 128;         // head dim (the wrapper zero-pads to 128)
-constexpr int HALF = 64;       // keys per inner step (two per listed block)
-constexpr int WARPS = 8;       // 8 warps x 16 rows = BM
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = D + 8;     // smem row stride in bf16 (conflict-free frags)
-constexpr int STAGES = 2;
-constexpr size_t Q_ELEMS = (size_t)BM * LDS;
-constexpr size_t KV_ELEMS = (size_t)BN * LDS;
+using namespace attn;
+
 constexpr size_t SMEM_BYTES =
     (Q_ELEMS + (size_t)STAGES * 2 * KV_ELEMS) * sizeof(__nv_bfloat16)
     + BM * sizeof(float);
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, f32 accumulators.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of D bf16 from global (row stride D) into smem (LDS).
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int rows) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
-    int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    cp_async16(dst + r * LDS + col, src + (size_t)r * D + col);
-  }
-}
 
 template <bool FIXED_MAX>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -183,117 +126,14 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     const int blk = list[j];
-    const bool need_mask = (blk + 1) * BN > seqlen;
     const float bias = (video_row && blk >= tsb) ? text_amp : 0.f;
-    const __nv_bfloat16* ks = k_stage(st);
-    const __nv_bfloat16* vs = v_stage(st);
-
-#pragma unroll
-    for (int h = 0; h < BN / HALF; ++h) {
-      // S = Q K^T for 16 rows x 64 keys
-      float sc[HALF / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < HALF / 8; ++nt)
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        const __nv_bfloat16* qa = sq + r0 * LDS + kk * 16 + 2 * t;
-        a[0] = *reinterpret_cast<const uint32_t*>(qa);
-        a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS);
-        a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS + 8);
-#pragma unroll
-        for (int nt = 0; nt < HALF / 8; ++nt) {
-          const __nv_bfloat16* kb =
-              ks + (h * HALF + nt * 8 + g) * LDS + kk * 16 + 2 * t;
-          mma16816(sc[nt], a, *reinterpret_cast<const uint32_t*>(kb),
-                   *reinterpret_cast<const uint32_t*>(kb + 8));
-        }
-      }
-      // scale, bias, seqlen mask
-#pragma unroll
-      for (int nt = 0; nt < HALF / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[nt][e] * scale2 + bias;
-          if (need_mask) {
-            const int key = blk * BN + h * HALF + nt * 8 + 2 * t + (e & 1);
-            if (key >= seqlen) x = -INFINITY;
-          }
-          sc[nt][e] = x;
-        }
-      }
-      if (!FIXED_MAX) {
-        // online softmax: running max per row, rescale acc and l
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < HALF / 8; ++nt)
-            mx = fmaxf(mx, fmaxf(sc[nt][2 * rr], sc[nt][2 * rr + 1]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m_row[rr], mx);
-          const float alpha =
-              (m_new == -INFINITY) ? 1.f : exp2f(m_row[rr] - m_new);
-          m_row[rr] = m_new;
-          l_row[rr] *= alpha;
-#pragma unroll
-          for (int dt = 0; dt < D / 8; ++dt) {
-            acc[dt][2 * rr] *= alpha;
-            acc[dt][2 * rr + 1] *= alpha;
-          }
-        }
-      }
-      // P = exp2(S - m), bf16 A-fragments for P V
-      uint32_t pa[HALF / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < HALF / 8; ++nt) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float m = m_row[e >> 1];
-          p[e] = (m == -INFINITY) ? 0.f : exp2f(sc[nt][e] - m);
-        }
-        l_row[0] += p[0] + p[1];
-        l_row[1] += p[2] + p[3];
-        // C layout of n-tile nt -> A layout of k-step nt/2
-        pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-      // O += P V  (V row-major [key][dim]; B fragment gathers 2 keys)
-#pragma unroll
-      for (int kk = 0; kk < HALF / 16; ++kk) {
-        const __nv_bfloat16* vk = vs + (h * HALF + kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const __nv_bfloat16* vp = vk + dt * 8;
-          const uint32_t b0 = pack_raw(vp[0], vp[LDS]);
-          const uint32_t b1 = pack_raw(vp[8 * LDS], vp[9 * LDS]);
-          mma16816(acc[dt], pa[kk], b0, b1);
-        }
-      }
-    }
+    attend_tile<!FIXED_MAX>(sq, k_stage(st), v_stage(st), r0, g, t, scale2,
+                            bias, blk * BN, (blk + 1) * BN > seqlen, seqlen,
+                            m_row, l_row, acc);
     __syncthreads();  // stage st is refilled two iterations on
   }
 
-  // finish: reduce l over the 4 lanes of a row, divide, store bf16
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float l = l_row[rr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = (l == 0.f) ? 0.f : 1.f / l;
-    __nv_bfloat16* orow =
-        o + head_off + (size_t)(qb * BM + r0 + 8 * rr) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-          __floats2bfloat162_rn(acc[dt][2 * rr] * inv,
-                                acc[dt][2 * rr + 1] * inv);
-    }
-  }
+  store_rows(o + head_off + (size_t)qb * BM * D, r0, t, BM, l_row, acc);
 }
 
 }  // namespace

@@ -131,48 +131,13 @@ def make_hy_carve(cfg: HYVideoConfig, grid, sa_drop_rate: float,
 # --------------------------------------------------------------- modules
 
 
-def _param(shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
-class Affine(nn.Module):
-    """Linear layer with params ``w`` [out, in] and optional ``b``;
-    ``zero`` marks the JAX package's zero-initialised layers."""
-
-    def __init__(self, d_in, d_out, dtype, device, bias=True, zero=False):
-        super().__init__()
-        self.zero = zero
-        self.w = _param((d_out, d_in), dtype, device)
-        self.b = _param((d_out,), dtype, device) if bias else None
-
-    def forward(self, x):
-        return L.linear(self, x)
-
-
-class Norm(nn.Module):
-    """LayerNorm affine params (``w``, ``b``), f32."""
-
-    def __init__(self, d, device):
-        super().__init__()
-        self.w = _param((d,), torch.float32, device)
-        self.b = _param((d,), torch.float32, device)
-
-
-class MLP(nn.Module):
-    def __init__(self, d_in, d_hidden, d_out, dtype, device):
-        super().__init__()
-        self.fc1 = Affine(d_in, d_hidden, dtype, device)
-        self.fc2 = Affine(d_hidden, d_out, dtype, device)
-
-
-def _timestep_embedder(p: MLP, t):
+def _timestep_embedder(p: L.MLP, t):
     """sinusoidal(256, cos-first) -> Linear -> SiLU -> Linear, f32."""
     emb = L.sinusoidal_embedding(256, t, flip_sin_cos=True)
     return p.fc2(L.silu(p.fc1(emb))).float()
 
 
-def _mlp_embedder(p: MLP, x):
+def _mlp_embedder(p: L.MLP, x):
     return p.fc2(L.silu(p.fc1(x)))
 
 
@@ -180,12 +145,12 @@ class RefinerBlock(nn.Module):
     def __init__(self, cfg: HYVideoConfig, device):
         super().__init__()
         d, mh, dt = cfg.hidden_size, cfg.mlp_hidden, cfg.torch_dtype
-        self.norm1 = Norm(d, device)
-        self.qkv = Affine(d, 3 * d, dt, device)
-        self.proj = Affine(d, d, dt, device)
-        self.norm2 = Norm(d, device)
-        self.mlp = MLP(d, mh, d, dt, device)
-        self.adaLN = Affine(d, 2 * d, torch.float32, device, zero=True)
+        self.norm1 = L.Norm(d, device)
+        self.qkv = L.Affine(d, 3 * d, dt, device)
+        self.proj = L.Affine(d, d, dt, device)
+        self.norm2 = L.Norm(d, device)
+        self.mlp = L.MLP(d, mh, d, dt, device)
+        self.adaLN = L.Affine(d, 2 * d, torch.float32, device, zero=True)
 
 
 class TokenRefiner(nn.Module):
@@ -195,9 +160,9 @@ class TokenRefiner(nn.Module):
         super().__init__()
         d, dt = cfg.hidden_size, cfg.torch_dtype
         self.cfg = cfg
-        self.input_embedder = Affine(cfg.text_states_dim, d, dt, device)
-        self.t_embedder = MLP(256, d, d, torch.float32, device)
-        self.c_embedder = MLP(cfg.text_states_dim, d, d, dt, device)
+        self.input_embedder = L.Affine(cfg.text_states_dim, d, dt, device)
+        self.t_embedder = L.MLP(256, d, d, torch.float32, device)
+        self.c_embedder = L.MLP(cfg.text_states_dim, d, d, dt, device)
         self.blocks = nn.ModuleList(RefinerBlock(cfg, device)
                                     for _ in range(cfg.refiner_depth))
 
@@ -290,16 +255,16 @@ class DoubleBlock(nn.Module):
         d, hd, mh = cfg.hidden_size, cfg.head_dim, cfg.mlp_hidden
         dt, f32, bias = cfg.torch_dtype, torch.float32, cfg.qkv_bias
         self.cfg = cfg
-        self.img_mod = Affine(d, 6 * d, f32, device)
-        self.txt_mod = Affine(d, 6 * d, f32, device)
-        self.img_qkv = Affine(d, 3 * d, dt, device, bias=bias)
-        self.txt_qkv = Affine(d, 3 * d, dt, device, bias=bias)
+        self.img_mod = L.Affine(d, 6 * d, f32, device)
+        self.txt_mod = L.Affine(d, 6 * d, f32, device)
+        self.img_qkv = L.Affine(d, 3 * d, dt, device, bias=bias)
+        self.txt_qkv = L.Affine(d, 3 * d, dt, device, bias=bias)
         for name in ("img_q_norm", "img_k_norm", "txt_q_norm", "txt_k_norm"):
-            setattr(self, name, _param((hd,), f32, device))
-        self.img_proj = Affine(d, d, dt, device, bias=bias)
-        self.txt_proj = Affine(d, d, dt, device, bias=bias)
-        self.img_mlp = MLP(d, mh, d, dt, device)
-        self.txt_mlp = MLP(d, mh, d, dt, device)
+            setattr(self, name, L.param((hd,), f32, device))
+        self.img_proj = L.Affine(d, d, dt, device, bias=bias)
+        self.txt_proj = L.Affine(d, d, dt, device, bias=bias)
+        self.img_mlp = L.MLP(d, mh, d, dt, device)
+        self.txt_mlp = L.MLP(d, mh, d, dt, device)
 
     def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen):
         b, si, d = img.shape
@@ -346,11 +311,11 @@ class SingleBlock(nn.Module):
         d, hd, mh, dt = (cfg.hidden_size, cfg.head_dim, cfg.mlp_hidden,
                          cfg.torch_dtype)
         self.cfg = cfg
-        self.modulation = Affine(d, 3 * d, torch.float32, device)
-        self.linear1 = Affine(d, 3 * d + mh, dt, device)
-        self.linear2 = Affine(d + mh, d, dt, device)
-        self.q_norm = _param((hd,), torch.float32, device)
-        self.k_norm = _param((hd,), torch.float32, device)
+        self.modulation = L.Affine(d, 3 * d, torch.float32, device)
+        self.linear1 = L.Affine(d, 3 * d + mh, dt, device)
+        self.linear2 = L.Affine(d + mh, d, dt, device)
+        self.q_norm = L.param((hd,), torch.float32, device)
+        self.k_norm = L.param((hd,), torch.float32, device)
 
     def forward(self, x, vec, carve, rope_cos, rope_sin, txt_len, seqlen):
         b, s, d = x.shape
@@ -378,9 +343,10 @@ class FinalLayer(nn.Module):
     def __init__(self, cfg: HYVideoConfig, device):
         super().__init__()
         d = cfg.hidden_size
-        self.linear = Affine(d, math.prod(cfg.patch_size) * cfg.out_channels,
-                             cfg.torch_dtype, device, zero=True)
-        self.adaLN = Affine(d, 2 * d, torch.float32, device, zero=True)
+        self.linear = L.Affine(d,
+                               math.prod(cfg.patch_size) * cfg.out_channels,
+                               cfg.torch_dtype, device, zero=True)
+        self.adaLN = L.Affine(d, 2 * d, torch.float32, device, zero=True)
 
 
 class HYVideoDiT(nn.Module):
@@ -395,17 +361,17 @@ class HYVideoDiT(nn.Module):
         d, dt, f32 = cfg.hidden_size, cfg.torch_dtype, torch.float32
         self.cfg = cfg
         patch_in = cfg.in_channels * math.prod(cfg.patch_size)
-        self.img_in = Affine(patch_in, d, dt, device)
+        self.img_in = L.Affine(patch_in, d, dt, device)
         self.txt_in = TokenRefiner(cfg, device)
-        self.time_in = MLP(256, d, d, f32, device)
-        self.vector_in = MLP(cfg.text_states_dim_2, d, d, f32, device)
+        self.time_in = L.MLP(256, d, d, f32, device)
+        self.vector_in = L.MLP(cfg.text_states_dim_2, d, d, f32, device)
         self.double_blocks = nn.ModuleList(
             DoubleBlock(cfg, device) for _ in range(cfg.double_blocks))
         self.single_blocks = nn.ModuleList(
             SingleBlock(cfg, device) for _ in range(cfg.single_blocks))
         self.final_layer = FinalLayer(cfg, device)
         if cfg.guidance_embed:
-            self.guidance_in = MLP(256, d, d, f32, device)
+            self.guidance_in = L.MLP(256, d, d, f32, device)
 
     @property
     def device(self):
@@ -490,23 +456,12 @@ class HYVideoDiT(nn.Module):
 @torch.no_grad()
 def init_hyvideo_(model: HYVideoDiT, generator: torch.Generator):
     """Random init on the model's device, distribution for distribution as
-    ``jenga_tpu.models.hyvideo.init_hyvideo_params``: linear weights
-    U(-sqrt(6/(in+out)), +sqrt(6/(in+out))) or zero where the JAX init
-    zeroes them, biases 0, norm scales 1, layer-norm shifts 0."""
+    ``jenga_tpu.models.hyvideo.init_hyvideo_params``: affine and norm
+    layers as ``layers.init_affine_or_norm_``, q/k RMS-norm scales 1."""
     for mod in model.modules():
-        if isinstance(mod, Affine):
-            if mod.zero:
-                mod.w.zero_()
-            else:
-                d_out, d_in = mod.w.shape
-                bound = math.sqrt(6.0 / (d_in + d_out))
-                mod.w.uniform_(-bound, bound, generator=generator)
-            if mod.b is not None:
-                mod.b.zero_()
-        elif isinstance(mod, Norm):
-            mod.w.fill_(1.0)
-            mod.b.zero_()
-        elif isinstance(mod, (DoubleBlock, SingleBlock)):
-            for name, p in mod.named_parameters(recurse=False):
+        if L.init_affine_or_norm_(mod, generator):
+            continue
+        if isinstance(mod, (DoubleBlock, SingleBlock)):
+            for p in mod.parameters(recurse=False):
                 p.fill_(1.0)   # the q/k RMS-norm scales
     return model

@@ -8,7 +8,9 @@ operands by multiplying after the cast), and RoPE tables are built on the
 host in f64 and applied in f32.
 
 Linear weights are stored torch-style, ``[out, in]``; the bridge from the
-JAX ``[in, out]`` layout transposes them once (``convert.py``).
+JAX ``[in, out]`` layout transposes them once (``convert.py``). The
+parameter holders shared by the DiTs (``Affine``, ``Norm``, ``MLP``) and
+their JAX-distributed random init live here too.
 """
 
 from __future__ import annotations
@@ -18,12 +20,75 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
     "linear", "rms_norm", "layer_norm", "gelu_tanh", "silu",
     "sinusoidal_embedding", "modulate", "patchify_3d", "unpatchify_3d",
-    "rope_table_1d", "rope_table_3d", "apply_rope",
+    "rope_table_1d", "rope_table_3d", "apply_rope", "param", "Affine",
+    "Norm", "MLP", "init_affine_or_norm_",
 ]
+
+
+def param(shape, dtype, device):
+    """An uninitialised, frozen parameter (the port serves, never trains)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Affine(nn.Module):
+    """Linear layer with params ``w`` [out, in] and optional ``b``;
+    ``zero`` marks the JAX package's zero-initialised layers."""
+
+    def __init__(self, d_in, d_out, dtype, device, bias=True, zero=False):
+        super().__init__()
+        self.zero = zero
+        self.w = param((d_out, d_in), dtype, device)
+        self.b = param((d_out,), dtype, device) if bias else None
+
+    def forward(self, x):
+        return linear(self, x)
+
+
+class Norm(nn.Module):
+    """LayerNorm affine params (``w``, ``b``), f32."""
+
+    def __init__(self, d, device):
+        super().__init__()
+        self.w = param((d,), torch.float32, device)
+        self.b = param((d,), torch.float32, device)
+
+
+class MLP(nn.Module):
+    """Two affine layers ``fc1``, ``fc2`` (the activation is the caller's)."""
+
+    def __init__(self, d_in, d_hidden, d_out, dtype, device):
+        super().__init__()
+        self.fc1 = Affine(d_in, d_hidden, dtype, device)
+        self.fc2 = Affine(d_hidden, d_out, dtype, device)
+
+
+@torch.no_grad()
+def init_affine_or_norm_(mod: nn.Module, generator: torch.Generator) -> bool:
+    """Init an ``Affine`` or ``Norm`` as the JAX inits do: linear weights
+    U(-sqrt(6/(in+out)), +sqrt(6/(in+out))) or zero where the JAX init
+    zeroes them, biases 0, norm scales 1 and shifts 0. Returns False for
+    any other module."""
+    if isinstance(mod, Affine):
+        if mod.zero:
+            mod.w.zero_()
+        else:
+            d_out, d_in = mod.w.shape
+            bound = math.sqrt(6.0 / (d_in + d_out))
+            mod.w.uniform_(-bound, bound, generator=generator)
+        if mod.b is not None:
+            mod.b.zero_()
+        return True
+    if isinstance(mod, Norm):
+        mod.w.fill_(1.0)
+        mod.b.zero_()
+        return True
+    return False
 
 
 def linear(p, x):
@@ -94,14 +159,20 @@ def patchify_3d(p, x, patch):
     return linear(p, x), (gt, gh, gw)
 
 
-def unpatchify_3d(x, grid, patch, out_channels: int):
-    """Inverse of patchify: [B, L, C*pt*ph*pw] -> [B, C, F, H, W], with
-    HunyuanVideo's (c, pt, ph, pw) feature order per token."""
+def unpatchify_3d(x, grid, patch, out_channels: int,
+                  channel_last: bool = False):
+    """Inverse of patchify: [B, L, C*pt*ph*pw] -> [B, C, F, H, W]. The
+    per-token feature order is HunyuanVideo's (c, pt, ph, pw) by default
+    and Wan's (pt, ph, pw, c) with ``channel_last``."""
     b = x.shape[0]
     gt, gh, gw = grid
     pt, ph, pw = patch
-    x = x.reshape(b, gt, gh, gw, out_channels, pt, ph, pw)
-    x = x.permute(0, 4, 1, 5, 2, 6, 3, 7)
+    if channel_last:
+        x = x.reshape(b, gt, gh, gw, pt, ph, pw, out_channels)
+        x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    else:
+        x = x.reshape(b, gt, gh, gw, out_channels, pt, ph, pw)
+        x = x.permute(0, 4, 1, 5, 2, 6, 3, 7)
     return x.reshape(b, out_channels, gt * pt, gh * ph, gw * pw)
 
 

@@ -5,9 +5,9 @@ The kernel (``csrc/block_sparse_attn.cu``) replaces the JAX package's two
 Pallas TPU kernels, ``_kernel_grouped`` in its all-member (joint
 selection) mode and the per-row ``_kernel``: ``q_rows`` adjacent 128-row
 query blocks share one ascending list of 128-key blocks (``q_rows == 1``
-is the per-row kernel). It is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, cached under
-``jenga_tpu_torch/_build/<source hash>/``, and loaded with ``ctypes``.
+is the per-row kernel). It is built at first use by
+``cuda_build.build_library`` (``nvcc`` for ``sm_90a``, a plain C interface
+loaded with ``ctypes``).
 
 ``block_sparse_attention`` launches the kernel for CUDA tensors and uses
 the plain version only for CPU tensors; there is no fallback between the
@@ -18,53 +18,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import subprocess
-import tempfile
 
 import torch
 
 from .attention_ref import block_sparse_attention_reference
+from .cuda_build import CSRC, build_library
 
 __all__ = ["block_sparse_attention", "block_sparse_attention_plain",
            "lists_to_mask", "max_key_norms", "build_kernel", "KERNEL_SOURCE"]
 
 _BLOCK = 128
 _HEAD_DIM = 128
-KERNEL_SOURCE = (pathlib.Path(__file__).resolve().parent.parent / "csrc"
-                 / "block_sparse_attn.cu")
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
+KERNEL_SOURCE = CSRC / "block_sparse_attn.cu"
 
 
 @functools.lru_cache(maxsize=1)
 def build_kernel() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library. Raises
-    with nvcc's output if the build fails."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    src = KERNEL_SOURCE.read_bytes()
-    out_dir = _BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
-    lib_path = out_dir / "libblock_sparse_attn.so"
-    if not lib_path.exists():
-        if CUDA_HOME is None:
-            raise RuntimeError("no CUDA toolkit found (nvcc) to build "
-                               f"{KERNEL_SOURCE.name}")
-        out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-               "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, str(KERNEL_SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {KERNEL_SOURCE.name}:"
-                               f"\n{res.stdout}\n{res.stderr}")
-        (out_dir / "ptxas.log").write_text(res.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    """Build (once per source hash) and load the kernel library."""
+    lib = build_library(KERNEL_SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bsa_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                 i, f, f, i, p]

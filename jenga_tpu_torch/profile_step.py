@@ -1,45 +1,57 @@
-"""Time and profile one carved trunk step of the HunyuanVideo port on a
-CUDA GPU.
+"""Time and profile one trunk step of the port's DiTs on a CUDA GPU.
 
-    python -m jenga_tpu_torch.profile_step --video-length 33 125 \
+    python -m jenga_tpu_torch.profile_step --video-length 33 125 \\
         --out profile_step.jsonl
+    python -m jenga_tpu_torch.profile_step --model wan --out wan.jsonl
 
-Builds the full HunyuanVideo T2V DiT (seeded random init on the card),
-and for each video length at --video-size: the Jenga-Base stage-0 carve
-(joint q8, drop 0.75), random latents and 256 text tokens, one embed,
-then
+``--model hyvideo`` (default) builds the full HunyuanVideo T2V DiT and,
+for each video length at --video-size (default 1280x720), profiles one
+carved trunk step: the Jenga-Base stage-0 carve (joint q8, drop 0.75),
+random latents and 256 text tokens. ``--model wan`` builds the full
+Wan2.1 T2V 1.3B DiT and, for each video length at --video-size (default
+832x480, 81 frames), profiles one carved trunk step (the 1.3b-base carve,
+joint q8, drop 0.75) and one dense warm-up trunk step (the carve's dense
+fallback), on the CFG batch of 2 with a random 512-token context. Weights
+are a seeded random init on the card. For each step:
 
   * the trunk's time (CUDA events; one warm-up run, then --reps runs),
   * one trunk run under torch.profiler, device time summed by kernel
-    class: the block-sparse attention kernel, matrix products (GEMM), and
-    everything else (planner, norms, RoPE, modulation, copies), with the
-    device's idle share of the profiled run's wall time,
+    class: the block-sparse attention kernel, the dense attention kernel,
+    matrix products (GEMM), and everything else (planner, norms, RoPE,
+    modulation, copies), with the device's idle share of the profiled
+    run's wall time,
   * the peak device memory.
 
-Prints one JSON line per shape (and writes them to --out).
+Prints one JSON line per step (and writes them to --out).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
 
 import torch
 
-from .configs.presets import get_hy_preset
+from .configs.presets import get_hy_preset, get_wan_preset
 from .models.hyvideo import HUNYUAN_VIDEO_T2V, make_hy_carve
+from .models.wan import WAN_T2V_1_3B, make_wan_carve
 from .ops.block_sparse_attention import block_sparse_attention
-from .runtime import HunyuanVideoSampler
+from .ops.flash_attention import dense_attention
+from .runtime import HunyuanVideoSampler, WanSampler
 
 _GEMM_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+_CLASSES = ("block_sparse_kernel", "dense_kernel", "gemm", "other")
 
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
     if "bsa_kernel" in low:
-        return "attention_kernel"
+        return "block_sparse_kernel"
+    if "dense_kernel" in low:
+        return "dense_kernel"
     if any(tag in low for tag in _GEMM_TAGS):
         return "gemm"
     return "other"
@@ -47,7 +59,7 @@ def _kernel_class(name: str) -> str:
 
 def _device_breakdown(prof) -> dict:
     """Device (kernel) time in ms by class, from the profiler's events."""
-    out = {"attention_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    out = dict.fromkeys(_CLASSES, 0.0)
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -55,9 +67,43 @@ def _device_breakdown(prof) -> dict:
     return out
 
 
-def profile_shape(sampler, size, video_length, reps):
-    cfg = sampler.cfg
-    dev = sampler.device
+def _profile(trunk, dev, reps: int) -> dict:
+    """Time ``trunk()`` with CUDA events, then profile one run of it."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    trunk()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        trunk()
+    end.record()
+    end.synchronize()
+    trunk_ms = start.elapsed_time(end) / reps
+    launches0 = (block_sparse_attention.launches, dense_attention.launches)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trunk()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class = _device_breakdown(prof)
+    busy = sum(by_class.values())
+    return {
+        "trunk_ms": trunk_ms, "reps": reps, "profiled_wall_ms": wall_ms,
+        "device_ms_by_class": by_class,
+        "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "block_sparse_launches": block_sparse_attention.launches
+        - launches0[0],
+        "dense_launches": dense_attention.launches - launches0[1],
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+
+
+@torch.inference_mode()
+def profile_hyvideo(sampler, size, video_length, reps):
+    cfg, dev = sampler.cfg, sampler.device
     opts = get_hy_preset("base", size=size, video_length=video_length)
     lat, grid = sampler.pipeline._stage_shapes(opts)[0]
     carve = make_hy_carve(cfg, grid, opts.sa_drop_rates[0], opts.p_remain,
@@ -71,65 +117,69 @@ def profile_shape(sampler, size, video_length, reps):
     mask = torch.ones((1, sampler.TEXT_LEN), dtype=torch.int32, device=dev)
     txt2 = torch.randn((1, cfg.text_states_dim_2), generator=gen, device=dev)
     model = sampler.model
-    with torch.inference_mode():
-        img, txth, aux = model.embed(x, t, txt, mask, txt2, carve)
+    img, txth, aux = model.embed(x, t, txt, mask, txt2, carve)
+    row = {"model": "hyvideo", "step": "carved", "size": list(size),
+           "video_length": video_length,
+           "tokens": img.shape[1] + txth.shape[1],
+           "blocks": -(-(img.shape[1] + txth.shape[1]) // 128)}
+    row.update(_profile(lambda: model.trunk(img, txth, aux, carve), dev,
+                        reps))
+    return [row]
 
-        def trunk():
-            return model.trunk(img, txth, aux, carve)
 
-        torch.cuda.reset_peak_memory_stats(dev)
-        trunk()
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            trunk()
-        end.record()
-        end.synchronize()
-        trunk_ms = start.elapsed_time(end) / reps
-        launches0 = block_sparse_attention.launches
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trunk()
-            torch.cuda.synchronize(dev)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = block_sparse_attention.launches - launches0
-    by_class = _device_breakdown(prof)
-    busy = sum(by_class.values())
-    return {
-        "size": list(size), "video_length": video_length,
-        "tokens": img.shape[1] + txth.shape[1],
-        "blocks": -(-(img.shape[1] + txth.shape[1]) // 128),
-        "trunk_ms": trunk_ms, "reps": reps,
-        "profiled_wall_ms": wall_ms,
-        "device_ms_by_class": by_class,
-        "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
-        "attention_launches": launches,
-        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-    }
+@torch.inference_mode()
+def profile_wan(sampler, size, frame_num, reps):
+    cfg, dev = sampler.cfg, sampler.device
+    opts = get_wan_preset("1.3b-base", size=size, frame_num=frame_num)
+    pipe = sampler.pipeline
+    lat = pipe._latent_shape(opts)
+    carve = make_wan_carve(cfg, pipe._token_grid(lat), opts.sa_drop_rates[0],
+                           opts.p_remain, curve=opts.curve,
+                           q_rows=opts.q_group, joint_sel=opts.joint_sel,
+                           device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, *lat), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    ctx = torch.randn((2, cfg.text_len, cfg.text_dim), generator=gen,
+                      device=dev)
+    model = sampler.model
+    h0, aux = model.embed(x, t, ctx, carve)
+    rows = []
+    for step, c in (("carved", carve),
+                    ("dense", dataclasses.replace(carve, sa_drop_rate=0.0))):
+        row = {"model": "wan-t2v-1.3b", "step": step, "size": list(size),
+               "video_length": frame_num, "batch": 2, "tokens": carve.seqlen,
+               "blocks": h0.shape[1] // 128}
+        row.update(_profile(lambda: model.trunk(h0, aux, c), dev, reps))
+        rows.append(row)
+    return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser("jenga_tpu_torch.profile_step")
-    ap.add_argument("--video-size", type=int, nargs=2, default=(1280, 720),
+    ap.add_argument("--model", choices=["hyvideo", "wan"], default="hyvideo")
+    ap.add_argument("--video-size", type=int, nargs=2, default=None,
                     metavar=("W", "H"))
-    ap.add_argument("--video-length", type=int, nargs="+", default=[33])
+    ap.add_argument("--video-length", type=int, nargs="+", default=None)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda")
+    if args.model == "wan":
+        sampler = WanSampler(WAN_T2V_1_3B, device="cuda")
+        run, size, lengths = profile_wan, (832, 480), [81]
+    else:
+        sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda")
+        run, size, lengths = profile_hyvideo, (1280, 720), [33]
+    size = tuple(args.video_size or size)
     rows = []
-    for vl in args.video_length:
-        row = profile_shape(sampler, tuple(args.video_size), vl, args.reps)
-        row["gpu"] = gpu
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+    for vl in args.video_length or lengths:
+        for row in run(sampler, size, vl, args.reps):
+            row["gpu"] = gpu
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(json.dumps(r) for r in rows) + "\n")

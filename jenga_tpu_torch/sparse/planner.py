@@ -11,10 +11,9 @@ Port of ``jenga_tpu/sparse/planner.py`` (``build_block_mask`` and
      a block more, never fewer),
   4. ORs in the 26-neighbourhood block adjacency (a group-level union in
      joint mode),
-  5. forces the text (condition) blocks on.
-
-Wan's first-frame forcing (``first_frame_blocks``) comes with the Wan
-slice.
+  5. forces the text (condition) blocks on, and with
+     ``first_frame_blocks`` makes the first-frame blocks mutually visible
+     (Wan; a group-level union in joint mode).
 
 The JAX package's 1024-aligned packed rows (``packed_row_size``,
 ``pack_block_lists*``) exist for the TPU's SMEM DMA tiling and are not
@@ -42,7 +41,7 @@ def _pool(x, nb: int, block_size: int):
 def build_block_mask(q, k, *, top_k: int, p_remain: float,
                      text_start_block: int, text_blocks: int,
                      block_neighbors=None, block_size: int = 128,
-                     sel_group: int = 1):
+                     first_frame_blocks: int = 0, sel_group: int = 1):
     """One-hot selection mask ``[B, H, nqb, nkb]`` (bool).
 
     ``q`` [B, H, nqb*block, D] video queries, ``k`` [B, H, Skv, D] padded
@@ -86,11 +85,19 @@ def build_block_mask(q, k, *, top_k: int, p_remain: float,
             neighbor = neighbor.reshape(ngq, g, -1).any(dim=1)
         video_mask = video_mask | neighbor[None, None]
 
+    if first_frame_blocks > 0 and g > 1:
+        # every group holding a first-frame row sees all first-frame blocks
+        ff_rows = -(-first_frame_blocks // g)
+        video_mask[:, :, :ff_rows, :first_frame_blocks] = True
+
     if g > 1:
         video_mask = video_mask.repeat_interleave(g, dim=2)[:, :, :nqb]
 
     mask = torch.zeros((b, h, nqb, nkb), dtype=torch.bool, device=q.device)
     mask[..., :text_start_block] = video_mask
+
+    if first_frame_blocks > 0 and g == 1:
+        mask[:, :, :first_frame_blocks, :first_frame_blocks] = True
 
     if text_blocks > 0:
         hi = min(text_start_block + text_blocks, nkb)

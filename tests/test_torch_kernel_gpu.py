@@ -1,6 +1,7 @@
-"""The block-sparse CUDA kernel against its plain torch version, on a CUDA
-card (skipped without one). This file imports no JAX, so it also runs on
-a machine that has only the port's dependencies:
+"""The CUDA kernels (block-sparse and dense attention) against their plain
+torch versions, on a CUDA card (skipped without one). This file imports
+no JAX, so it also runs on a machine that has only the port's
+dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
 """
@@ -11,6 +12,8 @@ import torch
 
 from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
+from jenga_tpu_torch.ops.flash_attention import (dense_attention,
+                                                 dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
 
 NB, TSB = 11, 9     # 9 video + 2 text blocks, as in the slice tests
@@ -19,7 +22,7 @@ NB, TSB = 11, 9     # 9 video + 2 text blocks, as in the slice tests
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the block-sparse kernel has no CPU "
+        pytest.skip("needs a CUDA GPU: the attention kernels have no CPU "
                     "or interpret mode")
     return torch.device("cuda")
 
@@ -68,3 +71,45 @@ def test_kernel_rejects_f32_operands(cuda_device):
     sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         block_sparse_attention(q.float(), k.float(), v.float(), idx, cnt, sl)
+
+
+def _dense_inputs(seed, device, b, sq, skv, h=2):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.standard_normal((b, h, n, 128)),
+                            dtype=torch.bfloat16, device=device)
+            for n in (sq, skv, skv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,kv_len", [
+    (1, 1024, 1024, None),          # whole tiles
+    (2, 1000, 300, [0, 137]),       # ragged Sq/Skv; an empty sample
+    (2, 700, 512, None),            # Wan cross-attention's 512 keys
+    (1, 1408, 1408, [1368])])       # HY joint length with padded text
+def test_dense_kernel_matches_plain_on_card(cuda_device, b, sq, skv, kv_len):
+    """The dense kernel vs its plain version, bf16 operands; 1e-2 covers the
+    bf16 rounding of P and of the output. kv_len 0 gives zeros."""
+    q, k, v = _dense_inputs(14, cuda_device, b, sq, skv)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                  device=cuda_device)
+    before = dense_attention.launches
+    out = dense_attention(q, k, v, kv_len=kl)
+    torch.cuda.synchronize()
+    assert dense_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    ref = dense_attention_plain(q.float(), k.float(), v.float(), kv_len=kl)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    if kv_len is not None and kv_len[0] == 0:
+        assert not out[0].any()
+
+
+@pytest.mark.gpu
+def test_dense_kernel_rejects_what_it_does_not_cover(cuda_device):
+    q, k, v = _dense_inputs(15, cuda_device, 1, 256, 256)
+    with pytest.raises(TypeError):
+        dense_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        dense_attention(q[..., :64], k[..., :64], v[..., :64])
+    with pytest.raises(NotImplementedError):
+        dense_attention(q, k, v, causal=True)

@@ -71,7 +71,8 @@ def test_sinusoidal_embedding(flip):
            1e-4)
 
 
-def test_patchify_unpatchify():
+@pytest.mark.parametrize("channel_last", [False, True])
+def test_patchify_unpatchify(channel_last):
     x = RNG.standard_normal((1, 4, 3, 8, 6)).astype(np.float32)
     w = RNG.standard_normal((16, 32)).astype(np.float32)
     jy, jgrid = JL.patchify_3d({"w": jnp.asarray(w)}, jnp.asarray(x),
@@ -81,8 +82,9 @@ def test_patchify_unpatchify():
     assert tgrid == jgrid
     _close(ty, jy, 1e-4)
     feat = RNG.standard_normal((1, 36, 16)).astype(np.float32)
-    _close(TL.unpatchify_3d(t(feat), (3, 4, 3), (1, 2, 2), 4),
-           JL.unpatchify_3d(jnp.asarray(feat), (3, 4, 3), (1, 2, 2), 4), 0)
+    _close(TL.unpatchify_3d(t(feat), (3, 4, 3), (1, 2, 2), 4, channel_last),
+           JL.unpatchify_3d(jnp.asarray(feat), (3, 4, 3), (1, 2, 2), 4,
+                            channel_last), 0)
 
 
 def test_rope_tables_and_apply():

@@ -19,7 +19,9 @@ from jenga_tpu.sparse import planner as jax_planner
 from jenga_tpu_torch.ops.attention_ref import block_sparse_attention_reference
 from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
-from jenga_tpu_torch.ops.flash_attention import dense_attention
+from jenga_tpu_torch.ops import flash_attention
+from jenga_tpu_torch.ops.flash_attention import (dense_attention,
+                                                 dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import (block_lists_from_mask,
                                                  effective_mask,
                                                  sparse_attention_from_mask)
@@ -135,6 +137,32 @@ def test_planner_mask_bit_exact(sel_group):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("sel_group", [1, 8])
+def test_planner_first_frame_blocks_bit_exact(sel_group):
+    """Wan's layout (no text blocks, text_start_block = nb) with
+    first-frame forcing: 23 blocks, so q8 has a ragged last group, and 20
+    first-frame blocks, so the forced q8 rows span all three groups. Bit
+    for bit vs JAX in f32; the forcing must change the mask."""
+    nb, ffb = 23, 20
+    q, k, _ = _qkv(12, nb=nb)
+    plan = build_curve_plan((5, 24, 24), "sliced", 128)
+    kw = dict(top_k=int(0.25 * nb), p_remain=0.3, text_start_block=nb,
+              text_blocks=0, sel_group=sel_group)
+    want = np.asarray(jax_planner.build_block_mask(
+        jnp.asarray(q), jnp.asarray(k), first_frame_blocks=ffb,
+        block_neighbors=jnp.asarray(plan.block_neighbors), **kw))
+    got = planner.build_block_mask(
+        t(q), t(k), first_frame_blocks=ffb,
+        block_neighbors=t(plan.block_neighbors), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    rows = -(-ffb // sel_group) * sel_group if sel_group > 1 else ffb
+    assert got[:, :, :rows, :ffb].all()
+    unforced = planner.build_block_mask(
+        t(q), t(k), block_neighbors=t(plan.block_neighbors), **kw).numpy()
+    assert not np.array_equal(got, unforced)
+    assert want.sum() < want.size    # the selection is not all-true
+
+
 def test_planner_bf16_pooling_matches_jax():
     """The bf16 branch pools with f32 accumulation on both sides."""
     q, k, _ = _qkv(7)
@@ -160,12 +188,21 @@ def test_mask_to_block_lists_matches_jax():
                                       np.asarray(wi[row])[:n])
 
 
-@pytest.mark.parametrize("kv_len", [None, [300, 0]])
-def test_dense_attention_matches_jax(kv_len):
-    """Dense attention with per-sample kv_len; kv_len 0 gives zeros."""
+@pytest.mark.parametrize("sq,skv,kv_len,slab", [
+    (384, 384, None, None), (384, 384, [300, 0], None),
+    (1000, 300, [0, 137], None), (1000, 300, [0, 137], 2 * 2 * 300 * 96),
+    (700, 512, None, None)])
+def test_dense_attention_matches_jax(monkeypatch, sq, skv, kv_len, slab):
+    """Dense attention (the CPU wrapper is the plain version) vs JAX's
+    dense_attention on the CPU, f32: ragged Sq/Skv, per-sample kv_len with
+    a 0 that gives zeros, and (slab) the plain version's query chunking.
+    1e-5 covers summation order."""
+    if slab is not None:
+        monkeypatch.setattr(flash_attention, "_SLAB", slab)
     rng = np.random.default_rng(9)
-    q, k, v = (rng.standard_normal((2, 2, 384, 32)).astype(np.float32)
-               for _ in range(3))
+    q = rng.standard_normal((2, 2, sq, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, skv, 32)).astype(np.float32)
+            for _ in range(2))
     kl = None if kv_len is None else np.array(kv_len, np.int32)
     want = np.asarray(jax_dense(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v),
@@ -173,6 +210,8 @@ def test_dense_attention_matches_jax(kv_len):
     got = dense_attention(t(q), t(k), t(v),
                           kv_len=None if kl is None else t(kl)).numpy()
     assert np.isfinite(got).all()
+    if kv_len is not None and kv_len[1] == 0:
+        assert not got[1].any()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -188,3 +227,13 @@ def test_wrapper_takes_plain_version_on_cpu():
                                      text_start_block=TSB)
     assert block_sparse_attention.launches == before
     assert torch.equal(a, b)
+
+
+def test_dense_wrapper_takes_plain_version_on_cpu():
+    q, k, v = (t(x) for x in _qkv(13, nb=2, d=128))
+    before = dense_attention.launches
+    a = dense_attention(q, k, v, kv_len=[200])
+    assert dense_attention.launches == before
+    assert torch.equal(a, dense_attention_plain(q, k, v, kv_len=[200]))
+    with pytest.raises(NotImplementedError):
+        dense_attention(q, k, v, causal=True)
