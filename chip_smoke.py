@@ -15,14 +15,26 @@ result line):
      != 0, a seqlen that cuts into the last text block, both softmax
      epilogues, HunyuanVideo's main shape (joint q8 and per-row), and
      Wan's (joint q8 with first-frame forcing, no text blocks, the pad
-     tail cut by seqlen). Dense: Wan self-attention, Wan cross-attention
-     over 512 keys, HunyuanVideo's joint dense shape with kv_len, and a
-     ragged small case with an empty sample (which must be all zeros);
+     tail cut by seqlen). Membership mode (q8 union lists + membership
+     words over per-row planner selections): (a) HunyuanVideo's main
+     shape, timed beside the per-row mode on the same mask; (b) the
+     HunyuanVideo Turbo stage-0 shape (142 blocks, tsb 140, seqlen 18,076,
+     text_amp 0.431) with an empty row, both epilogues; (c) the Wan Turbo
+     stage-0 shape (B=2, 141 blocks, first_frame_blocks 6, seqlen
+     18,018). Dense: Wan self-attention, Wan cross-attention over 512
+     keys, HunyuanVideo's joint dense shape with kv_len, and a ragged
+     small case with an empty sample (which must be all zeros);
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
      Jenga-Base preset at 1280x720x33f for 8 steps; latents finite and
      non-zero, the block-sparse kernel launched exactly 7 x 60 times;
+  3b. main path, the same model with the ProRes Turbo preset under
+     --q-group 8 --no-joint-sel at 1280x720x33f for 8 steps: stage 0 at
+     latent 16x9x66x120 (text_amp 0.431), the switch after step 4, stage
+     1 at 16x9x90x160; latents finite and non-zero; the membership mode
+     launched 60 x the computed steps of the host's skip schedule, and
+     nothing else;
   4. main path, Wan2.1 T2V 1.3B at full width and depth (1536 dim, 12
      heads, 30 layers, bf16, seeded random init, head perturbed) through
      WanSampler.generate with the 1.3b-base preset at 832x480x81f; the
@@ -30,18 +42,28 @@ result line):
      warm-up, a carved and a TeaCache-skipped step. Latents (16, 21, 60,
      104) finite and non-zero; block-sparse launches = 30 x carved steps,
      dense launches = 30 x dense steps + 30 x computed steps;
+  4b. main path, the same model with the 1.3b-turbo preset (joint q8) at
+     832x480x81f: the smallest step count from 6 and switch step whose
+     host schedule holds a dense step, a carved step in each stage and,
+     if 12 steps allow it, a skip; stage 0 at latent 16x21x44x78. Latents
+     (16, 21, 60, 104) and launch counts as in phase 4;
   5. end to end, kernels vs plain attention (both dispatch points
      patched): HunyuanVideo at full width cut to 1 double + 1 single
-     block, carved and dense (carve=None, the dense arm); Wan 1.3B at
-     full width cut to 2 layers at 832x480x81f, carved and dense
-     fallback. Each relative error within the stated bound.
+     block, carved and dense (carve=None, the dense arm), and at the
+     Turbo stage-0 grid with text_amp 0.431 in joint and per-row
+     (membership) selection; Wan 1.3B at full width cut to 2 layers at
+     832x480x81f, carved and dense fallback, and at the Turbo stage-0
+     grid in per-row selection. Each relative error within the stated
+     bound.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,6 +80,10 @@ KERNEL_TOL = 1e-2   # max abs error, kernel vs plain, per case
 # and gives errors of order 1.
 E2E_REL_TOL = 2e-2
 WAN_GRID = (21, 30, 52)     # 832x480x81f: 32,760 tokens, 256 blocks
+WAN_GRID0 = (21, 22, 39)    # its Turbo stage 0: 18,018 tokens, 141 blocks
+HY_GRID0 = (9, 33, 60)      # HY 1280x720x33f Turbo stage 0: 17,820 tokens
+# the Turbo stage-0 text amplitude, -log2(sqrt(token ratio to full res))
+HY_AMP0 = -math.log2(math.sqrt(33 * 60 / (45 * 80)))
 
 
 def fail(msg: str):
@@ -129,12 +155,13 @@ def _qkv(gen, b, h, s, d=128, skv=None):
                                                         skv or s)]
 
 
-def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max):
+def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max,
+          members=None):
     import torch
     from jenga_tpu_torch.ops.block_sparse_attention import (
-        block_sparse_attention, block_sparse_attention_plain)
-    kw = dict(q_rows=q_rows, text_amp=amp, text_start_block=tsb,
-              fixed_max=fixed_max)
+        block_sparse_attention, block_sparse_attention_plain, lists_to_mask)
+    kw = dict(q_rows=q_rows, members=members, text_amp=amp,
+              text_start_block=tsb, fixed_max=fixed_max)
     out = block_sparse_attention(q, k, v, idx, cnt, seqlens, **kw)
     torch.cuda.synchronize()
     ref = block_sparse_attention_plain(q.float(), k.float(), v.float(), idx,
@@ -142,10 +169,15 @@ def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max):
     err = (out.float() - ref).abs().max().item()
     if not torch.isfinite(out).all():
         fail(f"{name}: non-finite kernel output")
+    # density: the share of key blocks each query block attends
+    rows = lists_to_mask(idx, cnt, q_rows, q.shape[2] // 128, members)
     rec = {"kernel": "block_sparse_attn", "case": name,
+           "mode": "members" if members is not None else "all_member",
            "shape": list(q.shape), "q_rows": q_rows, "text_amp": amp,
            "fixed_max": fixed_max,
-           "density": round(cnt.float().mean().item() / idx.shape[-1], 4),
+           "density": round(rows.float().mean().item(), 4),
+           "list_density": round(cnt.float().mean().item() / idx.shape[-1],
+                                 4),
            "max_abs_err": err}
     rec["ms"] = time_ms(lambda: block_sparse_attention(
         q, k, v, idx, cnt, seqlens, **kw), 10)
@@ -154,7 +186,7 @@ def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max):
     print(f"   {json.dumps(rec)}", flush=True)
     if not err <= KERNEL_TOL:
         fail(f"{name}: max abs error {err} > {KERNEL_TOL}")
-    return rec
+    return rec, out
 
 
 def _dense_case(name, q, k, v, kv_len=None):
@@ -186,17 +218,55 @@ def _dense_case(name, q, k, v, kv_len=None):
     return rec, out
 
 
-def _planner_lists(q, k, nkb, tsb, q_rows=8, **kw):
+def _planner_mask(q, k, nkb, tsb, sel_group, **kw):
+    """The planner's selection for the video rows (top_k at drop 0.75),
+    with the text rows attending everything, as the HY model builds it."""
     import torch
-    from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
     from jenga_tpu_torch.sparse.planner import build_block_mask
     m = build_block_mask(q[:, :, :tsb * 128], k, top_k=int(0.25 * tsb),
                          text_start_block=tsb, text_blocks=nkb - tsb,
-                         sel_group=q_rows, **kw)
+                         sel_group=sel_group, **kw)
     full = torch.ones((*m.shape[:2], nkb - tsb, nkb), dtype=torch.bool,
                       device="cuda")
-    return block_lists_from_mask(torch.cat([m, full], 2), q_rows,
-                                 q_rows > 1)
+    return torch.cat([m, full], 2)
+
+
+def _planner_lists(q, k, nkb, tsb, q_rows=8, **kw):
+    """Joint q8 (or per-row q1) planner lists: (indices, counts)."""
+    from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
+    idx, cnt, _ = block_lists_from_mask(
+        _planner_mask(q, k, nkb, tsb, q_rows, **kw), q_rows, q_rows > 1)
+    return idx, cnt
+
+
+def _member_cases(name, q, k, v, mask, sl, tsb, amp, epilogues=(True,),
+                  per_row=False):
+    """Membership mode: the per-row mask packed as q8 union lists with
+    membership words, vs the plain version; with ``per_row`` the per-row
+    mode (q_rows=1) runs on the same mask, and the two outputs must be
+    identical (each query block attends its own blocks in the same
+    order)."""
+    import torch
+    from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
+    idx, cnt, mem = block_lists_from_mask(mask, 8)
+    recs = []
+    for fm in epilogues:
+        rec, out = _case(name, q, k, v, idx, cnt, sl, 8, tsb, amp, fm, mem)
+        recs.append(rec)
+        empty = ~mask.any(dim=-1)           # [B, H, nqb] rows with no block
+        for bi, hi, r in empty.nonzero().tolist():
+            if out[bi, hi, r * 128:(r + 1) * 128].any():
+                fail(f"{name}: empty row {(bi, hi, r)} is not all zeros")
+    if per_row:
+        idx1, cnt1, _ = block_lists_from_mask(mask, 1)
+        rec1, out1 = _case(name + "_per_row_mode", q, k, v, idx1, cnt1, sl,
+                           1, tsb, amp, epilogues[0])
+        if not torch.equal(out, out1):
+            fail(f"{name}: membership and per-row modes differ on the same "
+                 f"mask")
+        recs[0]["k2_ms_same_mask"] = rec1["ms"]
+        recs.append(rec1)
+    return recs
 
 
 def phase_kernel_cases():
@@ -214,11 +284,11 @@ def phase_kernel_cases():
     mask[..., tsb:] = True
     mask[:, :, tsb:] = True
     mask[0, 0, 5] = False
-    idx, cnt = block_lists_from_mask(mask, 1, False)
+    idx, cnt, _ = block_lists_from_mask(mask, 1)
     sl = torch.tensor([s - 40], dtype=torch.int32, device="cuda")
     for fm in (True, False):
         recs.append(_case("q1_random_lists", q, k, v, idx, cnt, sl, 1, tsb,
-                          -0.5, fm))
+                          -0.5, fm)[0])
 
     # joint q8 planner lists: group 7 mixes video blocks 56-61 with the
     # text blocks 62-63 (a boundary group); text_amp > 0; seqlen cut
@@ -229,7 +299,7 @@ def phase_kernel_cases():
     sl = torch.tensor([s - 100], dtype=torch.int32, device="cuda")
     for fm in (True, False):
         recs.append(_case("q8_joint_boundary", q, k, v, idx, cnt, sl, 8,
-                          tsb, 0.7, fm))
+                          tsb, 0.7, fm)[0])
 
     # HunyuanVideo's main shape: 32400 video + 256 text tokens, 256 blocks
     s, nkb, tsb = 32768, 256, 254
@@ -238,14 +308,22 @@ def phase_kernel_cases():
                               block_neighbors=None)
     sl = torch.tensor([32400 + 256], dtype=torch.int32, device="cuda")
     main = _case("q8_joint_main_shape", q, k, v, idx, cnt, sl, 8, tsb, 0.0,
-                 True)
+                 True)[0]
     recs.append(main)
     recs.append(_case("q8_joint_main_shape", q, k, v, idx, cnt, sl, 8, tsb,
-                      0.0, False))
+                      0.0, False)[0])
     idx, cnt = _planner_lists(q, k, nkb, tsb, q_rows=1, p_remain=0.3,
                               block_neighbors=None)
     recs.append(_case("q1_main_shape", q, k, v, idx, cnt, sl, 1, tsb, 0.0,
-                      True))
+                      True)[0])
+
+    # membership mode (a): per-row planner selections (sel_group 1, drop
+    # 0.75, p_remain 0.3) at the main shape, K2 on the same mask beside it
+    mask = _planner_mask(q, k, nkb, tsb, 1, p_remain=0.3,
+                         block_neighbors=None)
+    member = _member_cases("a_members_main_shape", q, k, v, mask, sl, tsb,
+                           0.0, per_row=True)
+    del mask
 
     # Wan's shape: B=2 (CFG), 12 heads, 32,760 tokens + 8 pad = 256 blocks,
     # no text blocks (tsb = nkb), first-frame forcing, the 1.3b-base
@@ -261,8 +339,36 @@ def phase_kernel_cases():
     print(f"   wan carve: first_frame_blocks {carve.first_frame_blocks}, "
           f"seqlen {carve.seqlen}")
     recs.append(_case("wan_q8_joint_first_frame", q, k, v, idx, cnt, sl, 8,
-                      nkb, 0.0, True))
+                      nkb, 0.0, True)[0])
     del q, k, v
+
+    # (b) HY Turbo stage 0: 17,820 video + 256 text tokens = 142 blocks,
+    # tsb 140; a video row with no block at all; both epilogues
+    s, nkb, tsb = 142 * 128, 142, 140
+    q, k, v = _qkv(gen, 1, 24, s)
+    mask = _planner_mask(q, k, nkb, tsb, 1, p_remain=0.3,
+                         block_neighbors=None)
+    mask[0, 5, 17] = False
+    sl = torch.tensor([17820 + 256], dtype=torch.int32, device="cuda")
+    member += _member_cases("b_members_hy_turbo_stage0", q, k, v, mask, sl,
+                            tsb, HY_AMP0, epilogues=(True, False))
+    del q, k, v, mask
+
+    # (c) Wan Turbo stage 0: B=2, 18,018 tokens + 30 pad = 141 blocks, no
+    # text blocks, first-frame forcing, the curve's adjacency
+    carve0 = make_wan_carve(WAN_T2V_1_3B, WAN_GRID0, 0.75, 0.9, q_rows=8,
+                            joint_sel=False, device="cuda")
+    nkb = 141
+    q, k, v = _qkv(gen, 2, 12, nkb * 128)
+    mask = _planner_mask(q, k, nkb, nkb, 1, p_remain=carve0.p_remain,
+                         block_neighbors=carve0.block_neighbors,
+                         first_frame_blocks=carve0.first_frame_blocks)
+    sl = torch.full((2,), carve0.seqlen, dtype=torch.int32, device="cuda")
+    print(f"   wan stage-0 carve: first_frame_blocks "
+          f"{carve0.first_frame_blocks}, seqlen {carve0.seqlen}")
+    member += _member_cases("c_members_wan_turbo_stage0", q, k, v, mask, sl,
+                            nkb, 0.0)
+    del q, k, v, mask
 
     # dense: (a) Wan self-attention, (b) Wan cross-attention over 512 keys,
     # (c) HunyuanVideo's joint dense shape with kv_len, (d) ragged small
@@ -290,7 +396,7 @@ def phase_kernel_cases():
     del q, k, v, out
     torch.cuda.empty_cache()
     done(t0)
-    return recs, main, dense
+    return recs, main, member, dense
 
 
 def _perturb(model, gen, scale=0.02):
@@ -326,21 +432,44 @@ def _text(gen, cfg, n_pad):
 
 
 class _Launches:
-    """Both kernels' launch counts over one main-path run: set to 0 on
-    entry, read on exit."""
+    """The kernels' launch counts over one main-path run: set to 0 on
+    entry, read on exit. The block-sparse wrapper counts its all-member
+    launches (K1/K2) and its membership-mode launches (K1m) apart."""
 
     def __enter__(self):
         from jenga_tpu_torch.ops.block_sparse_attention import (
             block_sparse_attention)
         from jenga_tpu_torch.ops.flash_attention import dense_attention
-        self.fns = {"block_sparse_attn": block_sparse_attention,
-                    "dense_attn": dense_attention}
-        for fn in self.fns.values():
-            fn.launches = 0
+        self.counters = {
+            "block_sparse_attn": (block_sparse_attention, "launches"),
+            "block_sparse_attn_members": (block_sparse_attention,
+                                          "member_launches"),
+            "dense_attn": (dense_attention, "launches")}
+        for fn, attr in self.counters.values():
+            setattr(fn, attr, 0)
         return self
 
     def __exit__(self, *exc):
-        self.counts = {name: fn.launches for name, fn in self.fns.items()}
+        self.counts = {name: getattr(fn, attr)
+                       for name, (fn, attr) in self.counters.items()}
+
+
+@contextlib.contextmanager
+def _recorded_sparse_calls(records):
+    """Record (sequence length, text_amp, membership mode, list density)
+    of every block-sparse call the model makes, then make it."""
+    from jenga_tpu_torch.ops import sparse_dispatch
+    real = sparse_dispatch.block_sparse_attention
+
+    def recording(q, k, v, indices, counts, *a, **kw):
+        records.append((q.shape[2], kw.get("text_amp", 0.0),
+                        kw.get("members") is not None,
+                        counts.float().mean() / indices.shape[-1]))
+        return real(q, k, v, indices, counts, *a, **kw)
+
+    with mock.patch.object(sparse_dispatch, "block_sparse_attention",
+                           recording):
+        yield
 
 
 class _StepTimer:
@@ -356,15 +485,12 @@ class _StepTimer:
         self.last = now
 
 
-def phase_hy_main_path():
+def _hy_sampler():
     import torch
-    from jenga_tpu_torch.configs.presets import get_hy_preset
     from jenga_tpu_torch.models.hyvideo import HUNYUAN_VIDEO_T2V
     from jenga_tpu_torch.runtime import HunyuanVideoSampler
-    t0 = phase("3. main path: HunyuanVideo T2V Jenga-Base, full width+depth")
-    cfg = HUNYUAN_VIDEO_T2V
     ti = time.perf_counter()
-    sampler = HunyuanVideoSampler(cfg, device="cuda", seed=0)
+    sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     _perturb(sampler.model, gen)
     torch.cuda.synchronize()
@@ -372,6 +498,27 @@ def phase_hy_main_path():
     print(f"   model: {n_params} params, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
           f"{time.perf_counter() - ti:.3f} s")
+    return sampler, gen
+
+
+def _check_latents(lat, expect_shape):
+    import torch
+    if tuple(lat.shape) != expect_shape:
+        fail(f"latents shape {tuple(lat.shape)} != {expect_shape}")
+    if not torch.isfinite(lat).all() or lat.abs().max().item() == 0.0:
+        fail("latents are not finite and non-zero")
+    print(f"   latents {tuple(lat.shape)} mean|x| "
+          f"{lat.abs().mean().item():.6f}")
+
+
+def phase_hy_main_path():
+    """Phases 3 and 3b on one model: Base, then ProRes Turbo with the
+    membership mode."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_preset
+    t0 = phase("3. main path: HunyuanVideo T2V Jenga-Base, full width+depth")
+    sampler, gen = _hy_sampler()
+    cfg = sampler.cfg
     opts = get_hy_preset("base", size=(1280, 720), video_length=33,
                          num_inference_steps=8)
     txt, mask, txt2 = _text(gen, cfg, n_pad=40)
@@ -383,29 +530,108 @@ def phase_hy_main_path():
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]}")
     print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}")
-    expect_shape = (16, 9, 90, 160)
-    if tuple(lat.shape) != expect_shape:
-        fail(f"latents shape {tuple(lat.shape)} != {expect_shape}")
-    if not torch.isfinite(lat).all() or lat.abs().max().item() == 0.0:
-        fail("latents are not finite and non-zero")
+    _check_latents(lat, (16, 9, 90, 160))
     expect = 7 * (cfg.double_blocks + cfg.single_blocks)
     if run.counts["block_sparse_attn"] != expect:
         fail(f"block-sparse launches {run.counts['block_sparse_attn']} != "
              f"{expect} (7 computed steps x 60 blocks)")
-    print(f"   latents {tuple(lat.shape)} mean|x| "
-          f"{lat.abs().mean().item():.6f}")
-    del sampler, lat
-    torch.cuda.empty_cache()
+    del lat
     done(t0)
-    return {"launches": run.counts, "step_s": timer.step_s,
+    base = {"launches": run.counts, "step_s": timer.step_s,
             "peak_gib": peak}
+    turbo = phase_hy_turbo(sampler, txt, mask, txt2)
+    del sampler
+    torch.cuda.empty_cache()
+    return base, turbo
+
+
+def phase_hy_turbo(sampler, txt, mask, txt2):
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_preset
+    t0 = phase("3b. main path: HunyuanVideo ProRes Turbo, --q-group 8 "
+               "--no-joint-sel, full width+depth")
+    cfg = sampler.cfg
+    n = 8
+    opts = get_hy_preset("turbo", size=(1280, 720), video_length=33,
+                         num_inference_steps=n, q_group=8, joint_sel=False)
+    splits = [int(n * r) for r in opts.step_rate_list]
+    computed = int(sampler.pipeline.compute_schedule(opts).sum())
+    print(f"   stage switch after step {splits[0]}; host skip schedule: "
+          f"{computed} of {n} steps computed")
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+    with _recorded_sparse_calls(calls), _Launches() as run:
+        lat = sampler.predict(txt, mask, txt2, opts, on_step=timer)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stage_s = [timer.step_s[:splits[0] + 1], timer.step_s[splits[0] + 1:]]
+    amps = {}
+    for seq, amp, _, _ in calls:
+        amps.setdefault(seq, set()).add(amp)
+    density = torch.stack([c[3] for c in calls]).mean().item()
+    print(f"   per-step seconds, stage 0: {[round(x, 4) for x in stage_s[0]]}"
+          f"; stage 1: {[round(x, 4) for x in stage_s[1]]}")
+    print(f"   text_amp by sequence length: "
+          f"{ {k: sorted(v) for k, v in amps.items()} } (stage 0 expects "
+          f"{HY_AMP0:.6f})")
+    print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}; "
+          f"union list density (mean over launches): {density:.4f}")
+    _check_latents(lat, (16, 9, 90, 160))
+    expect = {"block_sparse_attn": 0,
+              "block_sparse_attn_members":
+                  computed * (cfg.double_blocks + cfg.single_blocks),
+              "dense_attn": 0}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({computed} "
+             f"computed steps x 60 blocks, all in the membership mode)")
+    if not all(members for _, _, members, _ in calls):
+        fail("a block-sparse call went without membership words")
+    stage0 = sorted(amps.get(142 * 128, ()))
+    if not (len(stage0) == 1 and abs(stage0[0] - HY_AMP0) <= 1e-6
+            and amps.get(256 * 128) == {0.0}):
+        fail(f"text_amp by stage {amps}: expected {HY_AMP0} at 142 blocks "
+             f"and 0 at 256")
+    del lat
+    done(t0)
+    return {"launches": run.counts, "stage_step_s": stage_s,
+            "peak_gib": peak, "computed": computed, "density": density}
+
+
+def _wan_run(sampler, opts, kinds, ctx, null):
+    """One Wan generation with launch counts, per-step times and the list
+    density; checks the latents and the counts against the plan."""
+    import torch
+    cfg = sampler.cfg
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+    with _recorded_sparse_calls(calls), _Launches() as run:
+        lat = sampler.generate(ctx, null, opts, on_step=timer)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    density = (torch.stack([c[3] for c in calls]).mean().item()
+               if calls else None)
+    print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]}")
+    print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}; "
+          f"block-sparse list density (mean over launches): {density}")
+    _check_latents(lat, (16, 21, 60, 104))
+    n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
+    expect = {"block_sparse_attn": cfg.num_layers * n_carved,
+              "block_sparse_attn_members": 0,
+              "dense_attn": cfg.num_layers * (2 * n_dense + n_carved)}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
+             f"{n_carved} carved steps x {cfg.num_layers} layers)")
+    return {"launches": run.counts, "step_s": timer.step_s,
+            "peak_gib": peak, "schedule": kinds, "density": density}
 
 
 def phase_wan_main_path():
+    """Phases 4 and 4b on one model: 1.3b-base, then 1.3b-turbo."""
     import torch
     from jenga_tpu_torch.configs.presets import get_wan_preset
     from jenga_tpu_torch.models.wan import WAN_T2V_1_3B
-    from jenga_tpu_torch.ops import sparse_dispatch
     from jenga_tpu_torch.runtime import WanSampler
     t0 = phase("4. main path: Wan2.1 T2V 1.3B Jenga-Base, full width+depth")
     cfg = WAN_T2V_1_3B
@@ -431,43 +657,38 @@ def phase_wan_main_path():
           f"{opts.teacache_thresh}): schedule {kinds}")
     ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
     null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    base = _wan_run(sampler, opts, kinds, ctx, null)
+    done(t0)
 
-    densities = []
-    real_bsa = sparse_dispatch.block_sparse_attention
-
-    def recording_bsa(q, k, v, indices, counts, *a, **kw):
-        densities.append(counts.float().mean() / indices.shape[-1])
-        return real_bsa(q, k, v, indices, counts, *a, **kw)
-
-    torch.cuda.reset_peak_memory_stats()
-    timer = _StepTimer()
-    with mock.patch.object(sparse_dispatch, "block_sparse_attention",
-                           recording_bsa), _Launches() as run:
-        lat = sampler.generate(ctx, null, opts, on_step=timer)
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    density = torch.stack(densities).mean().item() if densities else None
-    print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]}")
-    print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}; "
-          f"block-sparse list density (mean over launches): {density}")
-    expect_shape = (16, 21, 60, 104)
-    if tuple(lat.shape) != expect_shape:
-        fail(f"latents shape {tuple(lat.shape)} != {expect_shape}")
-    if not torch.isfinite(lat).all() or lat.abs().max().item() == 0.0:
-        fail("latents are not finite and non-zero")
-    n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
-    expect = {"block_sparse_attn": cfg.num_layers * n_carved,
-              "dense_attn": cfg.num_layers * (2 * n_dense + n_carved)}
-    if run.counts != expect:
-        fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
-             f"{n_carved} carved steps x {cfg.num_layers} layers)")
-    print(f"   latents {tuple(lat.shape)} mean|x| "
-          f"{lat.abs().mean().item():.6f}")
-    del sampler, lat
+    t0 = phase("4b. main path: Wan2.1 T2V 1.3B Turbo (joint q8), full "
+               "width+depth")
+    chosen = None
+    for steps in range(6, 13):
+        for switch in range(1, steps - 1):
+            opts = get_wan_preset("1.3b-turbo", size=(832, 480),
+                                  frame_num=81, sampling_steps=steps,
+                                  turbo_switch_step=switch)
+            kinds = sampler.pipeline.step_plan(opts)
+            if ("dense" in kinds and "carved" in kinds[:switch + 1]
+                    and "carved" in kinds[switch + 1:]):
+                if "skip" in kinds:
+                    chosen = (opts, kinds)
+                    break
+                chosen = chosen or (opts, kinds)
+        if chosen is not None and "skip" in chosen[1]:
+            break
+    if chosen is None:
+        fail("no step count in 6..12 and switch step give a dense step and "
+             "a carved step in each stage")
+    opts, kinds = chosen
+    print(f"   chose sampling_steps={opts.sampling_steps}, "
+          f"turbo_switch_step={opts.turbo_switch_step}: schedule {kinds}")
+    turbo = _wan_run(sampler, opts, kinds, ctx, null)
+    turbo["switch"] = opts.turbo_switch_step
+    del sampler
     torch.cuda.empty_cache()
     done(t0)
-    return {"launches": run.counts, "step_s": timer.step_s,
-            "peak_gib": peak, "schedule": kinds, "density": density}
+    return base, turbo
 
 
 def _kernel_vs_plain(fwd):
@@ -513,6 +734,15 @@ def phase_end_to_end():
     for name, c in (("hy_carved", carve), ("hy_dense", None)):
         rel[name] = _kernel_vs_plain(
             lambda: model(x, t, txt[None], mask[None], txt2[None], c))
+    # the Turbo stage-0 grid (1280x720x33f at 0.75) with its text_amp, in
+    # per-row (membership) and joint selection
+    x = torch.randn((1, 16, 9, 66, 120), generator=gen, device="cuda")
+    for name, joint in (("hy_turbo_stage0_rowsel", False),
+                        ("hy_turbo_stage0_joint", True)):
+        c = make_hy_carve(cfg, HY_GRID0, 0.7, 0.3, text_amp=HY_AMP0,
+                          q_rows=8, joint_sel=joint, device="cuda")
+        rel[name] = _kernel_vs_plain(
+            lambda: model(x, t, txt[None], mask[None], txt2[None], c))
     del model
 
     cfg = dataclasses.replace(WAN_T2V_1_3B, num_layers=2)
@@ -527,6 +757,12 @@ def phase_end_to_end():
                     ("wan_dense", dataclasses.replace(carve,
                                                       sa_drop_rate=0.0))):
         rel[name] = _kernel_vs_plain(lambda: model(x, t, ctx, carve=c))
+    # the Turbo stage-0 grid in per-row (membership) selection
+    x = torch.randn((1, 16, 21, 44, 78), generator=gen, device="cuda")
+    c = make_wan_carve(cfg, WAN_GRID0, 0.75, 0.9, q_rows=8, joint_sel=False,
+                       device="cuda")
+    rel["wan_stage0_rowsel"] = _kernel_vs_plain(
+        lambda: model(x, t, ctx, carve=c))
     del model
     torch.cuda.empty_cache()
     for name, r in rel.items():
@@ -551,19 +787,22 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     phase_toolchain()
-    recs, main_rec, dense = phase_kernel_cases()
-    hy = phase_hy_main_path()
-    wan = phase_wan_main_path()
+    recs, main_rec, member, dense = phase_kernel_cases()
+    hy, hy_turbo = phase_hy_main_path()
+    wan, wan_turbo = phase_wan_main_path()
     rel = phase_end_to_end()
     if "jax" in sys.modules:
         fail("jax was imported")
     runs = {"hyvideo_t2v_base": hy["launches"],
-            "wan_t2v_1.3b_base": wan["launches"]}
+            "hyvideo_t2v_turbo_rowsel": hy_turbo["launches"],
+            "wan_t2v_1.3b_base": wan["launches"],
+            "wan_t2v_1.3b_turbo": wan_turbo["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
 
     wan_self = dense[0]
+    member_main = member[0]
     kernels = {"kernels": [{
         "name": "block_sparse_attn",
         "route": "cuda",
@@ -572,10 +811,27 @@ def main():
         "also_replaces": "jenga_tpu/ops/block_sparse_attention.py:49",
         "launches": sum(launches("block_sparse_attn").values()),
         "launches_by_path": launches("block_sparse_attn"),
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "max_abs_err": max(r["max_abs_err"] for r in recs + member
+                           if r["mode"] == "all_member"),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
-        "e2e_rel_err": max(rel["hy_carved"], rel["wan_carved"]),
+        "e2e_rel_err": max(rel["hy_carved"], rel["wan_carved"],
+                           rel["hy_turbo_stage0_joint"]),
+    }, {
+        "name": "block_sparse_attn_members",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/block_sparse_attn.cu",
+        "replaces": "jenga_tpu/ops/block_sparse_attention.py:409",
+        "mode": "all_member=False",
+        "launches": sum(launches("block_sparse_attn_members").values()),
+        "launches_by_path": launches("block_sparse_attn_members"),
+        "max_abs_err": max(r["max_abs_err"] for r in member
+                           if r["mode"] == "members"),
+        "ms": member_main["ms"],
+        "plain_ms": member_main["plain_ms"],
+        "k2_ms_same_mask": member_main["k2_ms_same_mask"],
+        "e2e_rel_err": max(rel["hy_turbo_stage0_rowsel"],
+                           rel["wan_stage0_rowsel"]),
     }, {
         "name": "dense_attn",
         "route": "cuda",

@@ -5,8 +5,14 @@ Usage:
   python -m jenga_tpu_torch.cli hyvideo-t2v --preset base --latents-only \
       --video-size 1280 720 --video-length 33 --infer-steps 8 \
       --save-path out.npy
-  python -m jenga_tpu_torch.cli wan-t2v --preset 1.3b-base --latents-only \
-      --infer-steps 8 --save-path out.npy
+  python -m jenga_tpu_torch.cli hyvideo-t2v --preset turbo --q-group 8 \
+      --no-joint-sel --latents-only --video-length 33 --infer-steps 8
+  python -m jenga_tpu_torch.cli wan-t2v --preset 1.3b-turbo --latents-only \
+      --save-path out.npy
+
+HunyuanVideo presets: base, turbo, flash, 3stage, accvideo (the last four
+switch resolution between stages, ProRes); Wan presets: 1.3b-base and
+1.3b-turbo (the 14B presets are refused).
 
 The port has no checkpoints, text encoders or VAE yet: the DiT runs from
 a seeded random init on the device, the text states are zero embeddings
@@ -22,6 +28,8 @@ import time
 
 
 def _q_group_arg(s: str) -> int:
+    """Joint selection takes up to 16 rows per group; --no-joint-sel at
+    most 8 (the membership words), which the pipeline build enforces."""
     v = int(s)
     if not 1 <= v <= 16:
         raise argparse.ArgumentTypeError(
@@ -37,6 +45,10 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--q-group", type=_q_group_arg, default=None,
                    help="query blocks that share one KV block list "
                         "(presets: 8; 1 = per-row selection)")
+    p.add_argument("--no-joint-sel", action="store_true",
+                   help="with --q-group > 1 (at most 8): each row keeps its "
+                        "own block selection, gathered from its group's "
+                        "union list with membership words")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
                    help="tiny random model (smoke runs)")
@@ -54,9 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
     h.add_argument("--preset", default="base",
                    choices=["base", "turbo", "flash", "3stage", "accvideo"])
     _common(h)
-    h.add_argument("--no-joint-sel", action="store_true",
-                   help="with --q-group > 1: per-row selection with union "
-                        "lists (needs the membership mode, not ported yet)")
     w = sub.add_parser("wan-t2v", help="Wan2.1 text-to-video")
     w.add_argument("--preset", default="1.3b-base",
                    choices=["1.3b-base", "1.3b-turbo", "14b-base",
@@ -136,10 +145,13 @@ def run_wan_t2v(args):
         over["sa_drop_rates"] = tuple(args.sa_drop_rates)
     if args.q_group is not None:
         over["q_group"] = args.q_group
+    if args.no_joint_sel:
+        over["joint_sel"] = False
     if args.teacache_thresh is not None:
         over["teacache_thresh"] = args.teacache_thresh
     if args.preset.startswith("14b"):
-        raise SystemExit("Wan 14B runs are not ported yet (1.3b-base only)")
+        raise SystemExit("Wan 14B runs are not ported yet (1.3b presets "
+                         "only)")
     opts = get_wan_preset(args.preset, **over)
 
     cfg = _tiny_wan_config() if args.tiny else WAN_T2V_1_3B

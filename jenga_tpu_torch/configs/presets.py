@@ -3,10 +3,11 @@
 
 Same data as ``jenga_tpu/configs/presets.py`` (which cannot be imported
 here: it pulls in the JAX pipelines). Every preset carries ``q_group=8``,
-joint 8-row group selection; ``--q-group 1`` restores the per-row
-selection. Only the Base presets (``base``, ``1.3b-base``, ``14b-base``)
-run end to end in the port so far: the others switch resolution between
-stages (ProRes, Wan Turbo), which is not ported yet and raises.
+joint 8-row group selection; ``--q-group 1`` or ``--no-joint-sel``
+restores the per-row selection. Every HunyuanVideo preset and the Wan
+1.3B ones run end to end; Turbo, Flash, 3Stage, AccVideo and 1.3b-turbo
+switch resolution between stages (ProRes). The 14B presets are data
+only: the CLI refuses Wan 14B runs.
 """
 
 from __future__ import annotations

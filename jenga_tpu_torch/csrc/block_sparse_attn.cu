@@ -1,13 +1,19 @@
 // Block-sparse attention over per-group KV block lists, for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of jenga_tpu/ops/block_sparse_attention.py:
-//   * K1 `_kernel_grouped` (all-member / joint-selection mode), reached via
-//     `block_sparse_attention_grouped` / `grouped_attention_from_mask`;
+// Replaces the Pallas TPU kernels of jenga_tpu/ops/block_sparse_attention.py:
+//   * K1 `_kernel_grouped` in its all-member (joint-selection) mode, reached
+//     via `block_sparse_attention_grouped` / `grouped_attention_from_mask`;
+//   * K1m, the same kernel with `all_member=False`: the group's list is the
+//     union of its rows' selections and a membership word per listed block
+//     says which rows (bit r = row r of the group) selected it;
 //   * K2 `_kernel`, reached via `block_sparse_attention` (per-row lists).
-// One launch serves both: each 128-row query tile reads the list of its
-// group, `group = query_block / q_rows` (q_rows = 1 is K2).
+// One launch serves all three: each 128-row query tile reads the list of
+// its group, `group = query_block / q_rows` (q_rows = 1 is K2). Without
+// membership words every row of the group attends the whole list; with
+// them (q_rows <= 8) a tile attends only the listed blocks whose bit
+// `query_block % q_rows` is set.
 //
-// Math (per query row i, over the listed 128-key blocks only):
+// Math (per query row i, over the attended 128-key blocks only):
 //   s_ij = (q_i . k_j) * sm_scale * log2(e)
 //          + text_amp   if row i is a video row and block(j) >= tsb
 //   s_ij = -inf         if key j >= seqlen[batch]
@@ -30,6 +36,15 @@
 // in registers (wgmma and TMA are left for a later revision); the tile
 // loop body is shared with the dense kernel (attn_tile.cuh).
 //
+// Membership mode keeps one thread block per query block: the block first
+// compacts the ids of its own member blocks, in list order, into shared
+// memory (a warp ballot per 32 list entries), then runs the same ring over
+// that list, so the prefetch always fetches the next member block and no
+// block is gathered that the tile does not use. Each tile thus gathers
+// exactly its own selection, as K2 does; the TPU's saving, one DMA per
+// union block for 8 rows, has its counterpart here only in L2 hits between
+// the 8 tiles of a group that run side by side.
+//
 // Plain C interface (loaded with ctypes); the launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
@@ -39,9 +54,12 @@ namespace {
 
 using namespace attn;
 
+// Q tile, the K|V ring and the per-row norms; membership mode adds nkb
+// ints for the compacted list.
 constexpr size_t SMEM_BYTES =
     (Q_ELEMS + (size_t)STAGES * 2 * KV_ELEMS) * sizeof(__nv_bfloat16)
     + BM * sizeof(float);
+constexpr size_t SMEM_LIMIT = 232448;  // 227 KB per block on sm_90
 
 template <bool FIXED_MAX>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -51,6 +69,7 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
            __nv_bfloat16* __restrict__ o,
            const int* __restrict__ lists,     // [BH, ngroups, nkb]
            const int* __restrict__ counts,    // [BH, ngroups]
+           const int* __restrict__ members,   // [BH, ngroups, nkb] or null
            const int* __restrict__ seqlens,   // [B]
            const float* __restrict__ maxk,    // [BH]
            int heads, int s, int skv, int nkb, int ngroups, int q_rows,
@@ -59,6 +78,8 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* skv_base = sq + Q_ELEMS;  // [STAGES][K|V][BN][LDS]
   float* qnorm = reinterpret_cast<float*>(skv_base + STAGES * 2 * KV_ELEMS);
+  int* own = reinterpret_cast<int*>(qnorm + BM);  // [nkb] member block ids
+  __shared__ int own_n;
 
   const int qb = blockIdx.x;  // query block (128 rows)
   const int bh = blockIdx.y;
@@ -68,8 +89,9 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
 
   const size_t head_off = (size_t)bh * s * D;
   const size_t kv_off = (size_t)bh * skv * D;
-  const int* list = lists + ((size_t)bh * ngroups + grp) * nkb;
-  const int n = counts[(size_t)bh * ngroups + grp];
+  const size_t row_off = ((size_t)bh * ngroups + grp) * nkb;
+  const int* list = lists + row_off;
+  int n = counts[(size_t)bh * ngroups + grp];
   const int seqlen = seqlens[bh / heads];
   const bool video_row = qb < tsb;
   const float scale2 = sm_scale * LOG2E;
@@ -78,6 +100,26 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
   auto v_stage = [&](int st) { return k_stage(st) + KV_ELEMS; };
 
   load_tile(sq, q + head_off + (size_t)qb * BM * D, BM);
+  if (members != nullptr) {
+    // keep the listed blocks whose bit for this tile is set, in list order
+    // (the Q copy above is in flight meanwhile)
+    if (warp == 0) {
+      const int* memb = members + row_off;
+      const int bit = qb % q_rows;
+      int m = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int j = base + lane;
+        const bool in = j < n && ((memb[j] >> bit) & 1);
+        const unsigned ball = __ballot_sync(0xffffffffu, in);
+        if (in) own[m + __popc(ball & ((1u << lane) - 1u))] = list[j];
+        m += __popc(ball);
+      }
+      if (lane == 0) own_n = m;
+    }
+    __syncthreads();
+    list = own;
+    n = own_n;
+  }
   if (n > 0) {
     const size_t blk0 = (size_t)list[0] * BN * D;
     load_tile(k_stage(0), k + kv_off + blk0, BN);
@@ -138,23 +180,29 @@ bsa_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
+// `members` null: every row of a group attends its whole list (K1, K2).
 extern "C" int bsa_forward(const void* q, const void* k, const void* v,
                            void* o, const void* lists, const void* counts,
-                           const void* seqlens, const void* maxk, int bh,
-                           int heads, int s, int skv, int nkb, int ngroups,
-                           int q_rows, int tsb, float sm_scale,
-                           float text_amp, int fixed_max, void* stream) {
+                           const void* members, const void* seqlens,
+                           const void* maxk, int bh, int heads, int s,
+                           int skv, int nkb, int ngroups, int q_rows, int tsb,
+                           float sm_scale, float text_amp, int fixed_max,
+                           void* stream) {
   auto kern = fixed_max ? bsa_kernel<true> : bsa_kernel<false>;
+  const size_t smem =
+      SMEM_BYTES + (members != nullptr ? (size_t)nkb * sizeof(int) : 0);
+  if (smem + sizeof(int) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(s / BM, bh);
-  kern<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<const int*>(lists), static_cast<const int*>(counts),
-      static_cast<const int*>(seqlens), static_cast<const float*>(maxk), heads,
-      s, skv, nkb, ngroups, q_rows, tsb, sm_scale, text_amp);
+      static_cast<const int*>(members), static_cast<const int*>(seqlens),
+      static_cast<const float*>(maxk), heads, s, skv, nkb, ngroups, q_rows,
+      tsb, sm_scale, text_amp);
   return (int)cudaGetLastError();
 }
 

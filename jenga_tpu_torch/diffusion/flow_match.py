@@ -6,8 +6,8 @@ explicitly. Updates run in f32 on the sample's device.
 
   * SD3 time shift:       sigma' = s*sigma / (1 + (s-1)*sigma)
   * Euler step:           x_{i+1} = x_i + v * (sigma_{i+1} - sigma_i)
-
-ProRes's x0 revert and re-noise come with the ProRes slice.
+  * x0 estimate (ProRes): x0_hat  = x_i + v * (sigma_last - sigma_i)
+  * re-noise (ProRes):    x_i     = (1-sigma_i)*x0 + sigma_i*noise
 """
 
 from __future__ import annotations
@@ -38,6 +38,16 @@ class FlowMatchSchedule:
     def step(self, i: int, sample, velocity):
         dt = float(self.sigmas[i + 1] - self.sigmas[i])
         return sample.float() + velocity.float() * dt
+
+    def predict_x0(self, i: int, sample, velocity):
+        """Clean-state estimate: integrate straight to the last sigma."""
+        d = float(self.sigmas[-1] - self.sigmas[i])
+        return sample.float() + velocity.float() * d
+
+    def renoise_to_step(self, i: int, clean, noise):
+        """Blend fresh noise back in to land exactly at sigma_i."""
+        s = float(self.sigmas[i])
+        return clean.float() * (1.0 - s) + noise.float() * s
 
 
 def flow_match_schedule(num_steps: int, shift: float = 1.0,

@@ -187,8 +187,8 @@ def rope_table_1d(positions: np.ndarray, dim: int, theta: float = 10000.0):
 def rope_table_3d(grid, dims, theta: float = 10000.0,
                   order: np.ndarray | None = None):
     """Interleaved 3-D rope tables (numpy f32 [S, head_dim//2] each) for a
-    (t, h, w) grid; ``order`` permutes tokens into curve order. (ProRes's
-    NTK-rescaled positions come with the ProRes slice.)"""
+    (t, h, w) grid; ``order`` permutes tokens into curve order. (JAX's
+    ``positions`` override, which no pipeline passes, is not ported.)"""
     t, h, w = grid
     cos_parts, sin_parts = [], []
     for axis, (size, dim) in enumerate(zip(grid, dims)):

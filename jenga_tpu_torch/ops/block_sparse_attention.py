@@ -1,17 +1,21 @@
 """Block-sparse attention over per-group KV block lists: the CUDA kernel's
 wrapper, its plain torch version and its launch counter.
 
-The kernel (``csrc/block_sparse_attn.cu``) replaces the JAX package's two
-Pallas TPU kernels, ``_kernel_grouped`` in its all-member (joint
-selection) mode and the per-row ``_kernel``: ``q_rows`` adjacent 128-row
-query blocks share one ascending list of 128-key blocks (``q_rows == 1``
-is the per-row kernel). It is built at first use by
-``cuda_build.build_library`` (``nvcc`` for ``sm_90a``, a plain C interface
-loaded with ``ctypes``).
+The kernel (``csrc/block_sparse_attn.cu``) replaces the JAX package's
+Pallas TPU kernels ``_kernel_grouped`` and the per-row ``_kernel``:
+``q_rows`` adjacent 128-row query blocks share one ascending list of
+128-key blocks (``q_rows == 1`` is the per-row kernel). Without
+``members`` every row of a group attends the whole list (the all-member,
+joint-selection mode); with ``members`` (int32 words aligned with the
+list, ``q_rows <= 8``) query block ``i`` attends only the listed blocks
+whose bit ``i % q_rows`` is set (the membership mode, ``all_member=False``
+in JAX). It is built at first use by ``cuda_build.build_library``
+(``nvcc`` for ``sm_90a``, a plain C interface loaded with ``ctypes``).
 
 ``block_sparse_attention`` launches the kernel for CUDA tensors and uses
 the plain version only for CPU tensors; there is no fallback between the
-two.
+two. ``block_sparse_attention.launches`` counts all-member launches and
+``block_sparse_attention.member_launches`` membership-mode launches.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import functools
 
 import torch
 
+from ..sparse.planner import MAX_MEMBER_ROWS
 from .attention_ref import block_sparse_attention_reference
 from .cuda_build import CSRC, build_library
 
@@ -37,8 +42,8 @@ def build_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = build_library(KERNEL_SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bsa_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                i, f, f, i, p]
+    lib.bsa_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                i, i, f, f, i, p]
     lib.bsa_forward.restype = ctypes.c_int
     lib.bsa_error_string.argtypes = [ctypes.c_int]
     lib.bsa_error_string.restype = ctypes.c_char_p
@@ -54,36 +59,46 @@ def max_key_norms(k):
         .reshape(b * h).contiguous()
 
 
-def lists_to_mask(indices, counts, q_rows: int, nqb: int):
+def lists_to_mask(indices, counts, q_rows: int, nqb: int, members=None):
     """Per-group lists -> the per-row one-hot mask [B, H, nqb, nkb] they
-    realize (every row of a group attends the group's list)."""
+    realize: every row of a group attends the group's list, or with
+    ``members`` only the listed blocks whose bit for the row is set."""
     nkb = indices.shape[-1]
     pos = torch.arange(nkb, device=indices.device)
-    sel = (pos < counts[..., None].long()).int()
-    hits = torch.zeros(indices.shape, dtype=torch.int32,
-                       device=indices.device)
-    hits.scatter_add_(-1, indices.long(), sel)
-    return (hits > 0).repeat_interleave(q_rows, dim=2)[:, :, :nqb]
+    listed = pos < counts[..., None].long()             # [B, H, G, nkb]
+    row = torch.arange(q_rows, device=indices.device)[:, None]
+    if members is None:
+        sel = listed[..., None, :].expand(*listed.shape[:-1], q_rows, nkb)
+    else:
+        sel = listed[..., None, :] & (
+            (members[..., None, :] >> row) & 1).bool()  # [B, H, G, q_rows, nkb]
+    hits = torch.zeros(sel.shape, dtype=torch.int32, device=indices.device)
+    hits.scatter_add_(-1, indices[..., None, :].expand(sel.shape).long(),
+                      sel.int())
+    return (hits > 0).flatten(2, 3)[:, :, :nqb]
 
 
 def block_sparse_attention_plain(q, k, v, indices, counts, seqlens, *,
-                                 q_rows: int = 1, sm_scale=None,
-                                 text_amp: float = 0.0,
+                                 q_rows: int = 1, members=None,
+                                 sm_scale=None, text_amp: float = 0.0,
                                  text_start_block: int = 0,
                                  fixed_max: bool = True):
-    """The kernel's plain version: the oracle over the mask the lists
-    realize. ``fixed_max`` only changes the kernel's rounding (both
-    epilogues compute the same softmax), so it is accepted and unused."""
+    """The kernel's plain version: the oracle over the mask the lists (and
+    membership words) realize. ``fixed_max`` only changes the kernel's
+    rounding (both epilogues compute the same softmax), so it is accepted
+    and unused."""
     del fixed_max
-    mask = lists_to_mask(indices, counts, q_rows, q.shape[2] // _BLOCK)
+    mask = lists_to_mask(indices, counts, q_rows, q.shape[2] // _BLOCK,
+                         members)
     return block_sparse_attention_reference(
         q, k, v, mask, sm_scale=sm_scale, text_amp=text_amp,
         text_start_block=text_start_block, seqlen=seqlens)
 
 
-def _check_operands(q, k, v, indices, counts, seqlens, q_rows):
+def _check_operands(q, k, v, indices, counts, members, seqlens, q_rows):
     if not (q.is_cuda and k.is_cuda and v.is_cuda and indices.is_cuda
-            and counts.is_cuda and seqlens.is_cuda):
+            and counts.is_cuda and seqlens.is_cuda
+            and (members is None or members.is_cuda)):
         raise ValueError("block_sparse_attention: every operand must lie on "
                          "the same CUDA device")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -108,20 +123,34 @@ def _check_operands(q, k, v, indices, counts, seqlens, q_rows):
     if counts.shape != (b, h, ngroups) or counts.dtype != torch.int32:
         raise ValueError(f"counts must be int32 {(b, h, ngroups)}, got "
                          f"{counts.dtype} {tuple(counts.shape)}")
+    if members is not None:
+        if members.shape != indices.shape or members.dtype != torch.int32:
+            raise ValueError(f"members must be int32 {(b, h, ngroups, nkb)}"
+                             f", got {members.dtype} "
+                             f"{tuple(members.shape)}")
+        if not 1 <= q_rows <= MAX_MEMBER_ROWS:
+            raise ValueError(f"membership words cover at most "
+                             f"{MAX_MEMBER_ROWS} rows, got {q_rows=}")
     if seqlens.shape != (b,) or seqlens.dtype != torch.int32:
         raise ValueError(f"seqlens must be int32 ({b},), got "
                          f"{seqlens.dtype} {tuple(seqlens.shape)}")
+    for name, x in (("indices", indices), ("counts", counts),
+                    ("members", members), ("seqlens", seqlens)):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
-                           q_rows: int = 1, sm_scale=None,
+                           q_rows: int = 1, members=None, sm_scale=None,
                            text_amp: float = 0.0, text_start_block: int = 0,
                            fixed_max: bool = True):
     """Block-sparse attention, [B, H, S, D] operands (S, Skv multiples of
     128), ``indices`` int32 [B, H, ngroups, nkb] ascending block ids of
     which the first ``counts`` [B, H, ngroups] are read, ``seqlens`` int32
-    [B] valid key counts. Query block ``i`` reads group ``i // q_rows``.
-    Returns [B, H, S, D] in q's dtype.
+    [B] valid key counts. Query block ``i`` reads group ``i // q_rows``;
+    ``members`` (None, or int32 like ``indices``) restricts it to the
+    listed blocks whose bit ``i % q_rows`` is set. Returns [B, H, S, D] in
+    q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 only) or raise."""
@@ -130,9 +159,9 @@ def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
     if not q.is_cuda:
         return block_sparse_attention_plain(
             q, k, v, indices, counts, seqlens, q_rows=q_rows,
-            sm_scale=sm_scale, text_amp=text_amp,
+            members=members, sm_scale=sm_scale, text_amp=text_amp,
             text_start_block=text_start_block, fixed_max=fixed_max)
-    _check_operands(q, k, v, indices, counts, seqlens, q_rows)
+    _check_operands(q, k, v, indices, counts, members, seqlens, q_rows)
     b, h, s, d = q.shape
     skv = k.shape[2]
     if d < _HEAD_DIM:
@@ -150,7 +179,8 @@ def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
     lib = build_kernel()
     err = lib.bsa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        indices.data_ptr(), counts.data_ptr(), seqlens.data_ptr(),
+        indices.data_ptr(), counts.data_ptr(),
+        None if members is None else members.data_ptr(), seqlens.data_ptr(),
         maxk.data_ptr(), b * h, h, s, skv, skv // _BLOCK,
         indices.shape[2], int(q_rows), int(text_start_block),
         float(sm_scale), float(text_amp), int(bool(fixed_max)),
@@ -158,8 +188,12 @@ def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
     if err != 0:
         raise RuntimeError("block_sparse_attention launch failed: "
                            + lib.bsa_error_string(err).decode())
-    block_sparse_attention.launches += 1
+    if members is None:
+        block_sparse_attention.launches += 1
+    else:
+        block_sparse_attention.member_launches += 1
     return out[..., :d] if d < _HEAD_DIM else out
 
 
 block_sparse_attention.launches = 0
+block_sparse_attention.member_launches = 0

@@ -5,25 +5,33 @@ Port of the forward half of ``jenga_tpu/ops/sparse_autodiff.py``
 (planner ``sel_group == q_rows``) every row of a group attends the union
 of the group's rows, so rows in a video/text boundary group, and padded
 rows, attend a superset of their own selection, exactly as the JAX
-``grouped_attention_from_mask`` does. The recompute backward is not
-ported: this package serves and does not train.
+``grouped_attention_from_mask`` does. Without joint selection and with
+``q_rows > 1`` (``--no-joint-sel``) each group's union list carries
+membership words and every row attends exactly its own selection. The
+recompute backward is not ported: this package serves and does not train.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..sparse.planner import mask_to_block_lists
+from ..sparse.planner import (mask_to_block_lists,
+                              mask_to_block_lists_grouped)
 from .block_sparse_attention import block_sparse_attention
 
 __all__ = ["sparse_attention_from_mask", "block_lists_from_mask",
            "effective_mask"]
 
 
+def _pad_rows(mask, q_rows: int):
+    """Empty rows up to a ``q_rows`` multiple (they are no query block)."""
+    nqb = mask.shape[2]
+    return torch.nn.functional.pad(mask, (0, 0, 0, -nqb % q_rows))
+
+
 def _group_union(mask, q_rows: int):
-    b, h, nqb, nkb = mask.shape
-    nb_pad = -(-nqb // q_rows) * q_rows
-    m = torch.nn.functional.pad(mask, (0, 0, 0, nb_pad - nqb))
+    m = _pad_rows(mask, q_rows)
+    b, h, nb_pad, nkb = m.shape
     return m.reshape(b, h, nb_pad // q_rows, q_rows, nkb).any(dim=3)
 
 
@@ -37,16 +45,16 @@ def effective_mask(mask, q_rows: int, joint: bool):
         q_rows, dim=2)[:, :, :nqb]
 
 
-def block_lists_from_mask(mask, q_rows: int, joint: bool):
-    """The kernel's (indices, counts) for a one-hot mask: one list per
-    row, or per group of ``q_rows`` rows (their union) in joint mode."""
+def block_lists_from_mask(mask, q_rows: int, joint: bool = False):
+    """The kernel's (indices, counts, members) for a one-hot mask: one
+    list per row (``q_rows == 1``), or per group of ``q_rows`` rows (their
+    union), with ``members`` None in joint mode (every row attends the
+    union) and the groups' membership words otherwise."""
     if q_rows == 1:
-        return mask_to_block_lists(mask)
-    if not joint:
-        raise NotImplementedError(
-            "q_rows > 1 without joint selection needs the membership-word "
-            "mode of the grouped kernel, which is not ported yet")
-    return mask_to_block_lists(_group_union(mask, q_rows))
+        return (*mask_to_block_lists(mask), None)
+    if joint:
+        return (*mask_to_block_lists(_group_union(mask, q_rows)), None)
+    return mask_to_block_lists_grouped(_pad_rows(mask, q_rows), q_rows)
 
 
 def sparse_attention_from_mask(qt, kt, vt, mask, *, seqlens=None,
@@ -64,7 +72,7 @@ def sparse_attention_from_mask(qt, kt, vt, mask, *, seqlens=None,
         sl = torch.as_tensor(seqlens, device=qt.device).to(
             torch.int32).reshape(-1).expand(b).contiguous()
     q_rows = max(1, int(q_rows))
-    indices, counts = block_lists_from_mask(mask, q_rows, joint)
+    indices, counts, members = block_lists_from_mask(mask, q_rows, joint)
     return block_sparse_attention(
-        qt, kt, vt, indices, counts, sl, q_rows=q_rows,
+        qt, kt, vt, indices, counts, sl, q_rows=q_rows, members=members,
         text_amp=text_amp, text_start_block=text_start_block)

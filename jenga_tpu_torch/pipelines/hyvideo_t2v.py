@@ -1,15 +1,18 @@
-"""HunyuanVideo T2V sampler: stage machine + carved MMDiT + step skipping.
+"""HunyuanVideo T2V sampler: ProRes stage machine + carved MMDiT + step
+skipping.
 
 Port of ``jenga_tpu/pipelines/hyvideo_t2v.py``. Each stage gets its own
 curve plan and carving spec; fixed-list skipping caches the curve-ordered
 image-stream trunk residual and stage starts force a compute step; the
 text-amplitude bias is ``-log2(sqrt(token_diff)) * scale`` at reduced
-resolution and 0 at full. The ``initial_latents`` and ``stage_noises``
-hooks let a test feed both implementations the same random draws.
-
-A stage switch that changes resolution (ProRes resize) is not ported yet
-and raises ``NotImplementedError``; the Base preset keeps full resolution
-in both stages.
+resolution (stage 0 only) and 0 at full. A switch out of a reduced-
+resolution stage (ProRes: Turbo, Flash, 3Stage, AccVideo) re-shifts the
+schedule to the new stage's shift first, then reverts the latents to x0
+on the new schedule, upsamples them trilinearly and re-noises them to the
+next step's sigma, with no Euler step; a switch between full-resolution
+stages (Base) takes the Euler step. The ``initial_latents`` and
+``stage_noises`` hooks let a test feed both implementations the same
+random draws.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from jenga_tpu.diffusion.skip import (HYVIDEO_NON_SKIP_STEPS,
                                       fixed_compute_schedule)
 
 from ..diffusion.flow_match import flow_match_schedule
+from ..diffusion.prores import trilinear_resize
 from ..models import hyvideo as hy
 
 __all__ = ["HYT2VOptions", "HYVideoT2VPipeline"]
@@ -74,6 +78,18 @@ class HYVideoT2VPipeline:
                            (lt, ph // 16, pw // 16)))
         return shapes
 
+    @staticmethod
+    def compute_schedule(opts: HYT2VOptions) -> np.ndarray:
+        """Per-step compute (True) / skip (False) on the host: the fixed
+        list, with every stage start forced (a switch happens after the
+        forward at step s, so step s + 1 starts the stage)."""
+        n = opts.num_inference_steps
+        if not opts.enable_skip:
+            return np.ones(n, bool)
+        return fixed_compute_schedule(
+            n, opts.non_skip_steps,
+            stage_starts=[int(n * r) + 1 for r in opts.step_rate_list])
+
     @torch.inference_mode()
     def generate(self, text_states, text_mask, text_states_2,
                  opts: HYT2VOptions, negative=None, on_step=None,
@@ -83,14 +99,11 @@ class HYVideoT2VPipeline:
         ``text_states`` [L, 4096], ``text_mask`` [L], ``text_states_2``
         [768] (numpy or tensors); ``negative`` an optional matching triple
         for CFG. ``on_step(i, latents)`` is called after every step.
-        ``stage_noises`` maps stage index to its re-noise draw; it is only
-        read at resolution-changing switches, which are not ported yet."""
+        ``initial_latents`` [C, F, H, W] replaces the stage-0 draw and
+        ``stage_noises`` maps a stage index (1..) to its [C, F, H, W]
+        re-noise draw; otherwise both come from one generator seeded with
+        ``opts.seed``, the re-noise draws after the initial latents."""
         validate_hy_options(opts)
-        if any(r != 1.0 for r in opts.res_rate_list[:-1]):
-            raise NotImplementedError(
-                "ProRes stage switches that change resolution (res_rate "
-                "!= 1.0) are not ported yet")
-        del stage_noises    # no re-noise draw without a resize
         model, cfg = self.model, self.cfg
         dev = model.device
         shapes = self._stage_shapes(opts)
@@ -131,20 +144,18 @@ class HYVideoT2VPipeline:
                 txt_block_num=opts.txt_block_num, q_rows=opts.q_group,
                 joint_sel=opts.joint_sel, device=dev))
 
-        # the switch happens after the forward at step s, so the next
-        # step is the forced-compute stage start
-        compute = (fixed_compute_schedule(
-            n, opts.non_skip_steps, stage_starts=[s + 1 for s in splits])
-            if opts.enable_skip else np.ones(n, bool))
+        compute = self.compute_schedule(opts)
 
+        gen = torch.Generator(device=dev).manual_seed(opts.seed)
         if initial_latents is not None:
             latents = torch.as_tensor(initial_latents, dtype=torch.float32,
                                       device=dev)[None]
         else:
-            gen = torch.Generator(device=dev).manual_seed(opts.seed)
             latents = torch.randn((1, cfg.in_channels, *shapes[0][0]),
                                   generator=gen, device=dev)
 
+        # the first schedule uses flow_shift; scheduler_shift_list only
+        # drives the re-shifts at ProRes switches
         schedule = flow_match_schedule(n, shift=opts.flow_shift)
         stage_idx = 0
         residual = None
@@ -162,11 +173,27 @@ class HYVideoT2VPipeline:
                 v = model.head(img2, aux, carve)
             if cfg_on:
                 v = v[0:1] + opts.guidance_scale * (v[1:2] - v[0:1])
-            if i in splits and stage_idx + 1 < len(carves):
+            switch = i in splits and stage_idx + 1 < len(carves)
+            if switch:
                 stage_idx += 1
                 carve = carves[stage_idx]
                 residual = None
-            latents = schedule.step(i, latents, v)
+            if switch and opts.res_rate_list[stage_idx - 1] != 1.0:
+                # re-shift first: the x0 revert uses the new schedule
+                schedule = flow_match_schedule(
+                    n, shift=opts.scheduler_shift_list[stage_idx])
+                lat_shape = (1, cfg.in_channels, *shapes[stage_idx][0])
+                if stage_noises is not None and stage_idx in stage_noises:
+                    noise = torch.as_tensor(stage_noises[stage_idx],
+                                            dtype=torch.float32,
+                                            device=dev)[None]
+                else:
+                    noise = torch.randn(lat_shape, generator=gen, device=dev)
+                clean = trilinear_resize(schedule.predict_x0(i, latents, v),
+                                         lat_shape[2:])
+                latents = schedule.renoise_to_step(i + 1, clean, noise)
+            else:
+                latents = schedule.step(i, latents, v)
             if on_step is not None:
                 on_step(i, latents[0])
         return latents[0]

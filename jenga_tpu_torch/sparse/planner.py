@@ -18,14 +18,20 @@ Port of ``jenga_tpu/sparse/planner.py`` (``build_block_mask`` and
 The JAX package's 1024-aligned packed rows (``packed_row_size``,
 ``pack_block_lists*``) exist for the TPU's SMEM DMA tiling and are not
 ported: the CUDA kernel takes plain ``[B, H, ngroups, nkb]`` index lists
-with ``[B, H, ngroups]`` counts.
+with ``[B, H, ngroups]`` counts, and for the membership mode
+(``mask_to_block_lists_grouped``, the content of
+``pack_block_lists_grouped``) ``[B, H, ngroups, nkb]`` membership words
+aligned with the ids.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["build_block_mask", "mask_to_block_lists"]
+__all__ = ["build_block_mask", "mask_to_block_lists",
+           "mask_to_block_lists_grouped"]
+
+MAX_MEMBER_ROWS = 8     # a membership word covers at most 8 rows
 
 
 def _pool(x, nb: int, block_size: int):
@@ -116,3 +122,35 @@ def mask_to_block_lists(mask):
     indices = torch.where(order < nkb, order, order - nkb)
     counts = mask.sum(dim=-1, dtype=torch.int32)
     return indices.contiguous(), counts.contiguous()
+
+
+def mask_to_block_lists_grouped(mask, group_q: int):
+    """One union list per group of ``group_q`` query rows, with membership
+    words: (indices, counts, members), int32 ``[B, H, nqb/group_q, nkb]``,
+    ``[B, H, nqb/group_q]`` and ``[B, H, nqb/group_q, nkb]``.
+
+    ``indices[..., :counts]`` are the union's block ids in ascending order
+    (the tail the other ids, ascending); ``members[..., j]`` has bit r set
+    when row ``group * group_q + r`` selected ``indices[..., j]`` (0 in the
+    tail). Same content as JAX's ``pack_block_lists_grouped`` (its ids and
+    membership halves), including its one composite-key sort."""
+    b, h, nqb, nkb = mask.shape
+    if nqb % group_q:
+        raise ValueError(f"query blocks ({nqb}) must divide into groups "
+                         f"of {group_q}")
+    if group_q > MAX_MEMBER_ROWS:
+        raise ValueError(f"membership words hold at most {MAX_MEMBER_ROWS} "
+                         f"rows per group, got {group_q}")
+    g = mask.reshape(b, h, nqb // group_q, group_q, nkb)
+    union = g.any(dim=3)
+    weights = 1 << torch.arange(group_q, dtype=torch.int32,
+                                device=mask.device)
+    memb = (g.int() * weights[:, None]).sum(dim=3, dtype=torch.int32)
+    cols = torch.arange(nkb, dtype=torch.int32, device=mask.device)
+    keys = torch.where(union, cols, cols + nkb)
+    packed = torch.sort((keys << 8) | memb, dim=-1).values
+    sorted_keys = packed >> 8
+    indices = torch.where(sorted_keys < nkb, sorted_keys, sorted_keys - nkb)
+    counts = union.sum(dim=-1, dtype=torch.int32)
+    return indices.contiguous(), counts.contiguous(), \
+        (packed & 0xFF).contiguous()

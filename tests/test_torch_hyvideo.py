@@ -143,15 +143,6 @@ def test_trajectory_matches_jax(small):
     assert err < 1e-4
 
 
-def test_prores_resize_not_ported(small):
-    _, _, model = small
-    opts = get_hy_preset("turbo", size=(256, 128), video_length=33,
-                         num_inference_steps=2)
-    txt, mask, txt2 = text_inputs(SMALL)
-    with pytest.raises(NotImplementedError):
-        HYVideoT2VPipeline(model).generate(txt, mask, txt2, opts)
-
-
 def _run(code_or_args, tmp_path=None):
     env = dict(os.environ, PYTHONPATH=ROOT)
     return subprocess.run([sys.executable, *code_or_args],

@@ -1,5 +1,6 @@
-"""The CUDA kernels (block-sparse and dense attention) against their plain
-torch versions, on a CUDA card (skipped without one). This file imports
+"""The CUDA kernels (block-sparse attention in its all-member and
+membership modes, dense attention) against their plain torch versions, on
+a CUDA card (skipped without one). This file imports
 no JAX, so it also runs on a machine that has only the port's
 dependencies:
 
@@ -48,7 +49,7 @@ def test_kernel_matches_plain_on_card(cuda_device, q_rows, fixed_max, d):
     operands (d=64 goes through the wrapper's zero padding to 128).
     1e-2 covers the bf16 rounding of P and of the output."""
     q, k, v, mask = _inputs(12, cuda_device, d=d)
-    idx, cnt = block_lists_from_mask(mask, q_rows, q_rows > 1)
+    idx, cnt, _ = block_lists_from_mask(mask, q_rows, q_rows > 1)
     sl = torch.tensor([NB * 128 - 40], dtype=torch.int32, device=cuda_device)
     kw = dict(q_rows=q_rows, text_amp=0.5, text_start_block=TSB,
               fixed_max=fixed_max)
@@ -65,12 +66,64 @@ def test_kernel_matches_plain_on_card(cuda_device, q_rows, fixed_max, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q_rows,fixed_max", [(8, True), (8, False),
+                                              (3, True)])
+def test_membership_kernel_matches_plain_and_per_row(cuda_device, q_rows,
+                                                     fixed_max):
+    """The membership mode (union lists + membership words) vs its plain
+    version and vs the per-row mode (q_rows=1) on the same per-row mask,
+    with text_amp, a seqlen tail, an empty row and an all-empty group row
+    set. Each query block attends its own blocks in ascending order in
+    both modes, so the two kernel outputs are identical."""
+    q, k, v, mask = _inputs(16, cuda_device)
+    mask[0, 1, 1] = False               # a second empty row, other head
+    idx, cnt, mem = block_lists_from_mask(mask, q_rows)
+    sl = torch.tensor([NB * 128 - 40], dtype=torch.int32, device=cuda_device)
+    kw = dict(text_amp=0.431, text_start_block=TSB, fixed_max=fixed_max)
+    before = (block_sparse_attention.launches,
+              block_sparse_attention.member_launches)
+    out = block_sparse_attention(q, k, v, idx, cnt, sl, q_rows=q_rows,
+                                 members=mem, **kw)
+    torch.cuda.synchronize()
+    assert (block_sparse_attention.launches,
+            block_sparse_attention.member_launches) == (before[0],
+                                                        before[1] + 1)
+    ref = block_sparse_attention_plain(q.float(), k.float(), v.float(), idx,
+                                       cnt, sl, q_rows=q_rows, members=mem,
+                                       **kw)
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    assert not out[0, 0, 3 * 128:4 * 128].any()
+    assert not out[0, 1, 1 * 128:2 * 128].any()
+    idx1, cnt1, _ = block_lists_from_mask(mask, 1)
+    per_row = block_sparse_attention(q, k, v, idx1, cnt1, sl, **kw)
+    assert torch.equal(out, per_row)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_f32_operands(cuda_device):
     q, k, v, mask = _inputs(13, cuda_device)
-    idx, cnt = block_lists_from_mask(mask, 1, False)
+    idx, cnt, _ = block_lists_from_mask(mask, 1, False)
     sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         block_sparse_attention(q.float(), k.float(), v.float(), idx, cnt, sl)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_bad_membership_words(cuda_device):
+    """members is checked like indices (int32, shape, device), and covers
+    at most 8 rows."""
+    q, k, v, mask = _inputs(17, cuda_device)
+    idx, cnt, mem = block_lists_from_mask(mask, 8)
+    sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
+    for bad in (mem.long(), mem.float(), mem[..., :-1].contiguous(),
+                mem[:, :1].contiguous(), mem.cpu()):
+        with pytest.raises(ValueError):
+            block_sparse_attention(q, k, v, idx, cnt, sl, q_rows=8,
+                                   members=bad)
+    idx16, cnt16, _ = block_lists_from_mask(mask, 16, True)
+    with pytest.raises(ValueError):
+        block_sparse_attention(q, k, v, idx16, cnt16, sl, q_rows=16,
+                               members=torch.zeros_like(idx16))
 
 
 def _dense_inputs(seed, device, b, sq, skv, h=2):

@@ -91,14 +91,6 @@ def test_dispatch_matches_jax_kernels(q_rows, joint):
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
 
 
-def test_dispatch_membership_mode_not_ported():
-    q, k, v = _qkv(4, nb=2, d=32)
-    mask = np.ones((1, 2, 2, 2), bool)
-    with pytest.raises(NotImplementedError):
-        sparse_attention_from_mask(t(q), t(k), t(v), t(mask), q_rows=2,
-                                   joint=False)
-
-
 @pytest.mark.parametrize("q_rows,joint", [(1, False), (8, False), (8, True),
                                           (4, True)])
 def test_effective_mask_bit_exact(q_rows, joint):
@@ -219,7 +211,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper is its plain version and does not count
     a kernel launch."""
     q, k, v = (t(x) for x in _qkv(10, d=128))
-    idx, cnt = block_lists_from_mask(t(_rand_mask(11)), 1, False)
+    idx, cnt, _ = block_lists_from_mask(t(_rand_mask(11)), 1, False)
     sl = torch.tensor([NB * 128], dtype=torch.int32)
     before = block_sparse_attention.launches
     a = block_sparse_attention(q, k, v, idx, cnt, sl, text_start_block=TSB)

@@ -210,7 +210,6 @@ def test_trajectory_matches_jax(small):
 
 
 @pytest.mark.parametrize("preset,over", [
-    ("1.3b-turbo", dict(turbo_switch_step=2)),
     ("1.3b-base", dict(solver="dpm++"))])
 def test_turbo_and_dpm_not_ported(small, preset, over):
     _, _, model = small
