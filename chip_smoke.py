@@ -6,10 +6,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints its seconds; any failure exits non-zero before the
 result line):
   1. toolchain: torch/CUDA versions, nvcc, the card's name and power
-     limit; builds both kernels from jenga_tpu_torch/csrc/ (one nvcc per
-     source, started together; sm_90a) and prints ptxas' resource use;
+     limit; builds all five kernel sources from jenga_tpu_torch/csrc/ (one
+     nvcc per source, started together; sm_90a) and prints ptxas' resource
+     use;
   2. kernels vs their plain torch versions on the card, max abs error
-     <= 1e-2 in each case, each case timed against the plain version.
+     <= 1e-2 in each case, each case timed against the plain version and
+     beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
+     its bytes, each operand read once, over 3.35 TB/s). The main cases
+     also time one library call on the same operands: flex_attention
+     (compiled) for K1 and K1m, SDPA (flash) for D's Wan cases.
      Block-sparse: random per-row lists (q_rows=1) with an empty row,
      joint q8 planner lists with a video/text boundary group, text_amp
      != 0, a seqlen that cuts into the last text block, both softmax
@@ -54,9 +59,22 @@ result line):
      (membership) selection; Wan 1.3B at full width cut to 2 layers at
      832x480x81f, carved and dense fallback, and at the Turbo stage-0
      grid in per-row selection. Each relative error within the stated
-     bound.
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+     bound;
+  6. probes: the four probe tools' run() at their own shapes, with the
+     launch counts set to 0 before and read after (each probe kernel must
+     launch; phases 3-4b must have launched none): P1 (the gather/compute
+     split, HY 1280x720x125f, K2 and K1 modes) and P2 (five epilogues,
+     904 blocks, q_rows 4) with flex_attention beside them; P3 (block
+     pooling at the Wan shape, each chunk within 1e-4 of its plain
+     version) and P4 (resident cross-attention at bq 1024/2048/4096
+     beside D and SDPA). Every P1/P2 variant's output at 115k tokens is
+     held against its plain version 16 query blocks at a time (one
+     head's logits over all keys would be 53 GB): P1 `both` and P2
+     `fixedmax` over every row, the others over the first, middle and
+     last 16 blocks. P1, P2 and P4 within 1e-2 max abs error and 2e-2
+     relative (L2) error.
+No module of jax or jenga_tpu may be loaded. The last two lines are the
+kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -79,6 +97,18 @@ KERNEL_TOL = 1e-2   # max abs error, kernel vs plain, per case
 # the next planner call. A masking or indexing fault changes whole rows
 # and gives errors of order 1.
 E2E_REL_TOL = 2e-2
+POOL_TOL = 1e-4     # P3: f32 sums of 128 bf16 values, in another order
+# P1, P2, P4: besides KERNEL_TOL, a bound on ||out - plain|| / ||plain||
+# over the checked rows. At 115k tokens a row attends ~35k keys and |o| is
+# ~1e-2, so an absolute 1e-2 alone would pass a wrong block; the bf16
+# rounding of P and of the output is ~2^-9 relative (~0.3% in all), while
+# one block dropped or added per row, or text_amp applied where it is not,
+# moves a row by several percent.
+PROBE_REL_TOL = 2e-2
+PEAK_FLOPS = 989e12     # H100 SXM bf16 dense tensor-core peak
+PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+TILE_FLOP = 4 * 128 ** 3    # QK^T and PV of one 128x128 tile, d = 128
 WAN_GRID = (21, 30, 52)     # 832x480x81f: 32,760 tokens, 256 blocks
 WAN_GRID0 = (21, 22, 39)    # its Turbo stage 0: 18,018 tokens, 141 blocks
 HY_GRID0 = (9, 33, 60)      # HY 1280x720x33f Turbo stage 0: 17,820 tokens
@@ -107,23 +137,34 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def bound(flop: float, nbytes: float, peak: float = PEAK_FLOPS):
+    """(least ms the card could take, "operations" or "bytes")."""
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def attn_bound(tiles: int, q, k):
+    """Bound of an attention over ``tiles`` 128x128 (query, key) tiles:
+    q, k, v read once, o written once."""
+    return bound(tiles * TILE_FLOP,
+                 2 * (q.numel() + k.numel()) * q.element_size())
+
+
 def time_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` on the card over at least ``reps`` calls after a
+    warm-up (more for a short call; the probe tools' timer)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from jenga_tpu_torch.tools._common import time_ms as tools_time_ms
+    return tools_time_ms(fn, reps, torch.device("cuda"))
 
 
 def phase_toolchain():
     import torch
+    from jenga_tpu_torch.ops import attention_probe as ap
+    from jenga_tpu_torch.ops import block_pool as bp
     from jenga_tpu_torch.ops import block_sparse_attention as bsa
+    from jenga_tpu_torch.ops import cross_attention_resident as xr
     from jenga_tpu_torch.ops import flash_attention as fa
     from torch.utils.cpp_extension import CUDA_HOME
     t0 = phase("1. toolchain")
@@ -134,10 +175,11 @@ def phase_toolchain():
     print(nvcc.stdout.strip().splitlines()[-1])
     print(f"gpu: {gpu_line()}")
     tb = time.perf_counter()
-    mods = (bsa, fa)
+    mods = (bsa, fa, ap, bp, xr)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         libs = list(pool.map(lambda m: m.build_kernel(), mods))
-    print(f"built both kernels in {time.perf_counter() - tb:.3f} s")
+    print(f"built all {len(mods)} kernel sources in "
+          f"{time.perf_counter() - tb:.3f} s")
     for mod, lib in zip(mods, libs):
         print(f"   {os.path.relpath(mod.KERNEL_SOURCE, ROOT)} -> "
               f"{os.path.relpath(lib._name, ROOT)}")
@@ -155,8 +197,25 @@ def _qkv(gen, b, h, s, d=128, skv=None):
                                                         skv or s)]
 
 
+def _flex_ms(rec, out, q, k, v, idx, cnt, seqlens, **kw):
+    """Time flex_attention (compiled) on the kernel's operands into rec:
+    library_ms, its compile seconds and its max abs difference to the
+    kernel. A yardstick only: a failure is recorded, not fatal."""
+    from jenga_tpu_torch.tools.library_baseline import flex_block_sparse
+    try:
+        t0 = time.perf_counter()
+        flex = flex_block_sparse(q, k, v, idx, cnt, seqlens, **kw)
+        rec["library_max_abs_diff"] = (flex().float() - out.float()).abs() \
+            .max().item()
+        rec["library_compile_s"] = time.perf_counter() - t0
+        rec["library_ms"] = time_ms(flex, 10)
+    except Exception as e:
+        rec["library_ms"] = None
+        rec["library_error"] = f"{type(e).__name__}: {str(e)[:300]}"
+
+
 def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max,
-          members=None):
+          members=None, library=False):
     import torch
     from jenga_tpu_torch.ops.block_sparse_attention import (
         block_sparse_attention, block_sparse_attention_plain, lists_to_mask)
@@ -183,6 +242,11 @@ def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max,
         q, k, v, idx, cnt, seqlens, **kw), 10)
     rec["plain_ms"] = time_ms(lambda: block_sparse_attention_plain(
         q, k, v, idx, cnt, seqlens, **kw), 2)
+    rec["bound_ms"], rec["bound_by"] = attn_bound(int(rows.sum().item()),
+                                                  q, k)
+    if library:
+        _flex_ms(rec, out, q, k, v, idx, cnt, seqlens, q_rows=q_rows,
+                 members=members, text_amp=amp, text_start_block=tsb)
     print(f"   {json.dumps(rec)}", flush=True)
     if not err <= KERNEL_TOL:
         fail(f"{name}: max abs error {err} > {KERNEL_TOL}")
@@ -193,6 +257,7 @@ def _dense_case(name, q, k, v, kv_len=None):
     import torch
     from jenga_tpu_torch.ops.flash_attention import (dense_attention,
                                                      dense_attention_plain)
+    from jenga_tpu_torch.tools.library_baseline import sdpa_flash
     out = dense_attention(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
     ref = dense_attention_plain(q.float(), k.float(), v.float(),
@@ -212,6 +277,11 @@ def _dense_case(name, q, k, v, kv_len=None):
     rec["plain_ms"] = time_ms(lambda: dense_attention_plain(
         q, k, v, kv_len=kv_len), 2)
     rec["tflops"] = 4.0 * h * sq * keys * d / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_ms"], rec["bound_by"] = bound(
+        4.0 * h * sq * keys * d, 2 * (q.numel() + k.numel()) * 2)
+    # SDPA has no per-sample key length on its flash backend
+    rec["library_ms"] = (None if kv_len is not None else
+                         time_ms(lambda: sdpa_flash(q, k, v), 10))
     print(f"   {json.dumps(rec)}", flush=True)
     if not err <= KERNEL_TOL:
         fail(f"{name}: max abs error {err} > {KERNEL_TOL}")
@@ -240,7 +310,7 @@ def _planner_lists(q, k, nkb, tsb, q_rows=8, **kw):
 
 
 def _member_cases(name, q, k, v, mask, sl, tsb, amp, epilogues=(True,),
-                  per_row=False):
+                  per_row=False, library=False):
     """Membership mode: the per-row mask packed as q8 union lists with
     membership words, vs the plain version; with ``per_row`` the per-row
     mode (q_rows=1) runs on the same mask, and the two outputs must be
@@ -251,7 +321,8 @@ def _member_cases(name, q, k, v, mask, sl, tsb, amp, epilogues=(True,),
     idx, cnt, mem = block_lists_from_mask(mask, 8)
     recs = []
     for fm in epilogues:
-        rec, out = _case(name, q, k, v, idx, cnt, sl, 8, tsb, amp, fm, mem)
+        rec, out = _case(name, q, k, v, idx, cnt, sl, 8, tsb, amp, fm, mem,
+                         library=library and fm == epilogues[0])
         recs.append(rec)
         empty = ~mask.any(dim=-1)           # [B, H, nqb] rows with no block
         for bi, hi, r in empty.nonzero().tolist():
@@ -308,21 +379,21 @@ def phase_kernel_cases():
                               block_neighbors=None)
     sl = torch.tensor([32400 + 256], dtype=torch.int32, device="cuda")
     main = _case("q8_joint_main_shape", q, k, v, idx, cnt, sl, 8, tsb, 0.0,
-                 True)[0]
+                 True, library=True)[0]
     recs.append(main)
     recs.append(_case("q8_joint_main_shape", q, k, v, idx, cnt, sl, 8, tsb,
                       0.0, False)[0])
     idx, cnt = _planner_lists(q, k, nkb, tsb, q_rows=1, p_remain=0.3,
                               block_neighbors=None)
     recs.append(_case("q1_main_shape", q, k, v, idx, cnt, sl, 1, tsb, 0.0,
-                      True)[0])
+                      True, library=True)[0])
 
     # membership mode (a): per-row planner selections (sel_group 1, drop
     # 0.75, p_remain 0.3) at the main shape, K2 on the same mask beside it
     mask = _planner_mask(q, k, nkb, tsb, 1, p_remain=0.3,
                          block_neighbors=None)
     member = _member_cases("a_members_main_shape", q, k, v, mask, sl, tsb,
-                           0.0, per_row=True)
+                           0.0, per_row=True, library=True)
     del mask
 
     # Wan's shape: B=2 (CFG), 12 heads, 32,760 tokens + 8 pad = 256 blocks,
@@ -431,20 +502,34 @@ def _text(gen, cfg, n_pad):
     return txt, mask, txt2
 
 
+PROBES = ("attn_probe_split", "attn_probe_epilogue", "block_pool",
+          "cross_attn_resident")   # P1-P4: no main path launches them
+NO_PROBES = dict.fromkeys(PROBES, 0)
+
+
 class _Launches:
-    """The kernels' launch counts over one main-path run: set to 0 on
-    entry, read on exit. The block-sparse wrapper counts its all-member
-    launches (K1/K2) and its membership-mode launches (K1m) apart."""
+    """The kernels' launch counts over one path's run: set to 0 on entry,
+    read on exit. The block-sparse wrapper counts its all-member launches
+    (K1/K2) and its membership-mode launches (K1m) apart, the probe
+    wrapper its P1 and P2 launches."""
 
     def __enter__(self):
+        from jenga_tpu_torch.ops.attention_probe import attention_probe
+        from jenga_tpu_torch.ops.block_pool import block_pool
         from jenga_tpu_torch.ops.block_sparse_attention import (
             block_sparse_attention)
+        from jenga_tpu_torch.ops.cross_attention_resident import (
+            cross_attention_resident)
         from jenga_tpu_torch.ops.flash_attention import dense_attention
         self.counters = {
             "block_sparse_attn": (block_sparse_attention, "launches"),
             "block_sparse_attn_members": (block_sparse_attention,
                                           "member_launches"),
-            "dense_attn": (dense_attention, "launches")}
+            "dense_attn": (dense_attention, "launches"),
+            "attn_probe_split": (attention_probe, "split_launches"),
+            "attn_probe_epilogue": (attention_probe, "epilogue_launches"),
+            "block_pool": (block_pool, "launches"),
+            "cross_attn_resident": (cross_attention_resident, "launches")}
         for fn, attr in self.counters.values():
             setattr(fn, attr, 0)
         return self
@@ -535,6 +620,8 @@ def phase_hy_main_path():
     if run.counts["block_sparse_attn"] != expect:
         fail(f"block-sparse launches {run.counts['block_sparse_attn']} != "
              f"{expect} (7 computed steps x 60 blocks)")
+    if any(run.counts[p] for p in PROBES):
+        fail(f"a probe kernel ran on the main path: {run.counts}")
     del lat
     done(t0)
     base = {"launches": run.counts, "step_s": timer.step_s,
@@ -581,7 +668,7 @@ def phase_hy_turbo(sampler, txt, mask, txt2):
     expect = {"block_sparse_attn": 0,
               "block_sparse_attn_members":
                   computed * (cfg.double_blocks + cfg.single_blocks),
-              "dense_attn": 0}
+              "dense_attn": 0, **NO_PROBES}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x 60 blocks, all in the membership mode)")
@@ -619,7 +706,8 @@ def _wan_run(sampler, opts, kinds, ctx, null):
     n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
     expect = {"block_sparse_attn": cfg.num_layers * n_carved,
               "block_sparse_attn_members": 0,
-              "dense_attn": cfg.num_layers * (2 * n_dense + n_carved)}
+              "dense_attn": cfg.num_layers * (2 * n_dense + n_carved),
+              **NO_PROBES}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {cfg.num_layers} layers)")
@@ -774,6 +862,140 @@ def phase_end_to_end():
     return rel
 
 
+def phase_probes():
+    """Phase 6: the four probe tools at their own shapes, counted; then
+    P1's and P2's numerics at the HY main shape, not counted."""
+    from jenga_tpu_torch.tools import epilogue_probe as p2
+    from jenga_tpu_torch.tools import kernel_split_probe as p1
+    from jenga_tpu_torch.tools import pool_probe as p3
+    from jenga_tpu_torch.tools import wan_overhead_probe2 as p4
+    t0 = phase("6. probes: P1-P4 through their tools, at the tools' shapes")
+    with _Launches() as run:
+        r1 = p1.run(device="cuda", library=True, check=True)
+        p1.print_table(r1)
+        r2 = p2.run(device="cuda", library=True, check=True)
+        p2.print_table(r2)
+        r3 = p3.run(device="cuda")
+        p3.print_table(r3)
+        r4 = p4.run(device="cuda")
+        p4.print_table(r4)
+    print(f"   kernel launches: {run.counts}")
+    idle = [p for p in PROBES if run.counts[p] == 0]
+    if idle:
+        fail(f"probe kernels {idle} were not launched by their tools")
+    for c, err in r3["max_abs_err"].items():
+        if not err <= POOL_TOL:
+            fail(f"P3 chunk {c}: max abs error {err} > {POOL_TOL}")
+    checks = [(f"P1 {m} {v}", r) for m, rec in r1["modes"].items()
+              for v, r in rec["variants"].items()]
+    checks += [(f"P2 {v}", r) for v, r in r2["variants"].items()]
+    checks += [(f"P4 {v}", r) for v, r in r4["attn"].items()]
+    for name, r in checks:
+        if not (r["max_abs_err"] <= KERNEL_TOL
+                and r["rel_err"] <= PROBE_REL_TOL):
+            fail(f"{name}: max abs error {r['max_abs_err']} (bound "
+                 f"{KERNEL_TOL}), relative error {r['rel_err']} (bound "
+                 f"{PROBE_REL_TOL})")
+    done(t0)
+    return {"counts": run.counts, "p1": r1, "p2": r2, "p3": r3, "p4": r4}
+
+
+def _probe_entries(probes, runs):
+    """The kernels-line entries of P1-P4, all at the tools' own shapes: ms
+    of each variant; max_abs_err and rel_err over every variant checked;
+    plain_ms of the headline variant over every row (P1 `both` in K1
+    mode, P2 `fixedmax`)."""
+    counts = probes["counts"]
+
+    def launches(name):
+        return {**{path: c[name] for path, c in runs.items()},
+                "probes": counts[name]}
+
+    def worst(recs, key):
+        return max(r[key] for r in recs)
+
+    r1 = probes["p1"]
+    k1 = r1["modes"]["k1_q8"]
+    p1_recs = [r for rec in r1["modes"].values()
+               for r in rec["variants"].values()]
+    p1_bound = bound(k1["pairs"] * TILE_FLOP, 4 * math.prod(r1["shape"]) * 2)
+    r2 = probes["p2"]
+    p2_recs = list(r2["variants"].values())
+    p2_bound = bound(r2["pairs"] * TILE_FLOP, 4 * math.prod(r2["shape"]) * 2)
+    r3, r4 = probes["p3"], probes["p4"]
+    p4_recs = [r for name, r in r4["attn"].items()
+               if name.startswith("resident")]
+    # one f32 add per bf16 element read; f32 means written, 1/64 the bytes
+    p3_bound = bound(r3["bytes"] // 2, r3["bytes"] * (1 + 1 / 64), PEAK_F32)
+    p4_bound = bound(r4["flop"], r4["bytes"])
+    return [{
+        "name": "attn_probe_split",
+        "probe": "P1",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/attn_probe.cu",
+        "replaces": "tools/kernel_split_probe.py:140",
+        "launches": counts["attn_probe_split"],
+        "launches_by_path": launches("attn_probe_split"),
+        "max_abs_err": worst(p1_recs, "max_abs_err"),
+        "rel_err": worst(p1_recs, "rel_err"),
+        "ms": k1["variants"]["both"]["ms"],
+        "ms_of": f"both, k1_q8, {r1['shape']}",
+        "variant_ms": {m: {v: r["ms"] for v, r in rec["variants"].items()}
+                       for m, rec in r1["modes"].items()},
+        "plain_ms": k1["variants"]["both"]["plain_ms"],
+        "bound_ms": p1_bound[0], "bound_by": p1_bound[1],
+        "library_ms": k1.get("library_ms"),
+    }, {
+        "name": "attn_probe_epilogue",
+        "probe": "P2",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/attn_probe.cu",
+        "replaces": "tools/epilogue_probe.py:250",
+        "launches": counts["attn_probe_epilogue"],
+        "launches_by_path": launches("attn_probe_epilogue"),
+        "max_abs_err": worst(p2_recs, "max_abs_err"),
+        "rel_err": worst(p2_recs, "rel_err"),
+        "ms": r2["variants"]["fixedmax"]["ms"],
+        "ms_of": f"fixedmax, q_rows 4, {r2['shape']}",
+        "variant_ms": {v: r["ms"] for v, r in r2["variants"].items()},
+        "plain_ms": r2["variants"]["fixedmax"]["plain_ms"],
+        "bound_ms": p2_bound[0], "bound_by": p2_bound[1],
+        "library_ms": r2.get("library_ms"),
+    }, {
+        "name": "block_pool",
+        "probe": "P3",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/block_pool.cu",
+        "replaces": "tools/pool_probe.py:111",
+        "launches": counts["block_pool"],
+        "launches_by_path": launches("block_pool"),
+        "max_abs_err": max(r3["max_abs_err"].values()),
+        "ms": r3["pool_ms"]["kernel c16"],
+        "ms_of": f"q and k (two launches), chunk 16, {r3['shape']}",
+        "variant_ms": {name: ms for name, ms in r3["pool_ms"].items()
+                       if name.startswith("kernel")},
+        "plain_ms": r3["pool_ms"]["plain"],
+        "bound_ms": p3_bound[0], "bound_by": p3_bound[1],
+        "library_ms": r3["pool_ms"]["torch mean"],
+    }, {
+        "name": "cross_attn_resident",
+        "probe": "P4",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/cross_attn_resident.cu",
+        "replaces": "tools/wan_overhead_probe2.py:122",
+        "launches": counts["cross_attn_resident"],
+        "launches_by_path": launches("cross_attn_resident"),
+        "max_abs_err": worst(p4_recs, "max_abs_err"),
+        "rel_err": worst(p4_recs, "rel_err"),
+        "ms": r4["attn"]["resident bq2048"]["ms"],
+        "ms_of": f"bq 2048, q {r4['shape'][0]} x kv {r4['shape'][1]}",
+        "variant_ms": {name: r["ms"] for name, r in r4["attn"].items()},
+        "plain_ms": r4["plain_ms"],
+        "bound_ms": p4_bound[0], "bound_by": p4_bound[1],
+        "library_ms": r4["attn"]["sdpa"]["ms"],
+    }]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -791,8 +1013,11 @@ def main():
     hy, hy_turbo = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
     rel = phase_end_to_end()
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    probes = phase_probes()
+    loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
+                    or m.startswith(("jax.", "jenga_tpu.")))
+    if loaded:
+        fail(f"modules of jax or jenga_tpu were imported: {loaded[:8]}")
     runs = {"hyvideo_t2v_base": hy["launches"],
             "hyvideo_t2v_turbo_rowsel": hy_turbo["launches"],
             "wan_t2v_1.3b_base": wan["launches"],
@@ -803,6 +1028,7 @@ def main():
 
     wan_self = dense[0]
     member_main = member[0]
+    k2_main = next(r for r in recs if r["case"] == "q1_main_shape")
     kernels = {"kernels": [{
         "name": "block_sparse_attn",
         "route": "cuda",
@@ -815,6 +1041,11 @@ def main():
                            if r["mode"] == "all_member"),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"],
+        "library_ms": main_rec["library_ms"],
+        "k2_ms": k2_main["ms"],
+        "k2_library_ms": k2_main["library_ms"],
         "e2e_rel_err": max(rel["hy_carved"], rel["wan_carved"],
                            rel["hy_turbo_stage0_joint"]),
     }, {
@@ -829,6 +1060,9 @@ def main():
                            if r["mode"] == "members"),
         "ms": member_main["ms"],
         "plain_ms": member_main["plain_ms"],
+        "bound_ms": member_main["bound_ms"],
+        "bound_by": member_main["bound_by"],
+        "library_ms": member_main["library_ms"],
         "k2_ms_same_mask": member_main["k2_ms_same_mask"],
         "e2e_rel_err": max(rel["hy_turbo_stage0_rowsel"],
                            rel["wan_stage0_rowsel"]),
@@ -842,8 +1076,11 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in dense),
         "ms": wan_self["ms"],
         "plain_ms": wan_self["plain_ms"],
+        "bound_ms": wan_self["bound_ms"],
+        "bound_by": wan_self["bound_by"],
+        "library_ms": wan_self["library_ms"],
         "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"]),
-    }]}
+    }] + _probe_entries(probes, runs)}
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

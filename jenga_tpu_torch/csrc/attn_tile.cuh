@@ -1,7 +1,10 @@
 // Device code shared by the port's attention kernels (block_sparse_attn.cu,
-// dense_attn.cu): tile constants, cp.async loads with a zero-filled ragged
-// edge, the mma.sync m16n8k16 product, one 128-key tile of base-2 softmax
-// attention for a warp's 16 query rows, and the normalising store.
+// dense_attn.cu, and the probes attn_probe.cu and cross_attn_resident.cu):
+// tile constants, cp.async loads with a zero-filled ragged edge, the
+// mma.sync m16n8k16 product, one 128-key tile of base-2 softmax attention
+// for a warp's 16 query rows, and the normalising store. The tile's
+// compile-time switches exist for the probes; their defaults are the
+// production kernels' code.
 //
 // Layout: a thread block of 8 warps owns 128 query rows (16 per warp);
 // Q and each K|V tile sit in shared memory with a row stride of D + 8 bf16
@@ -83,17 +86,49 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// One 128-key tile (ks, vs in smem) against this warp's 16 query rows of
-// sq: S = Q K^T * scale2 + bias (base-2 logits), keys >= kv_valid set to
-// -inf when need_mask, then acc += exp2(S - m) V and l += rowsum. ONLINE:
-// m is the running row max (acc and l rescaled when it grows, guarded
-// while it is still -inf); otherwise m is the caller's fixed bound.
-template <bool ONLINE>
+// Where a warp's Q A-fragments (16 rows x 16 dims per k-step) come from:
+// the Q tile in shared memory (row stride LDS; rows r0 and r0 + 8 of this
+// thread) or registers filled once per query tile.
+struct QSmem {
+  const __nv_bfloat16* sq;
+  int r0, t;
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+    const __nv_bfloat16* qa = sq + r0 * LDS + kk * 16 + 2 * t;
+    a[0] = *reinterpret_cast<const uint32_t*>(qa);
+    a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS);
+    a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS + 8);
+  }
+};
+struct QRegs {
+  uint32_t f[D / 16][4];
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+  }
+};
+
+// Which tiles apply the key mask (keys >= kv_valid to -inf) and the bias.
+enum class KeyMask {
+  kAsNeeded,  // the bias always, the mask where the caller's need_mask says
+  kAlways,    // the bias and the mask in every tile
+  kNever,     // neither (the probes' "no masking" floor)
+};
+
+// One 128-key tile (ks, vs in smem) against this warp's 16 query rows:
+// S = Q K^T * scale2 + bias (base-2 logits), keys >= kv_valid set to -inf
+// as MASK says, then acc += exp2(S - m) V and l += rowsum. ONLINE: m is
+// the running row max (acc and l rescaled when it grows, guarded while it
+// is still -inf); otherwise m is the caller's bound, fixed or constant.
+// MATH = false skips the tile's arithmetic (the copy-only probe).
+template <bool ONLINE, KeyMask MASK = KeyMask::kAsNeeded, bool MATH = true,
+          class QFrag = QSmem>
 __device__ __forceinline__ void attend_tile(
-    const __nv_bfloat16* sq, const __nv_bfloat16* ks,
-    const __nv_bfloat16* vs, int r0, int g, int t, float scale2, float bias,
-    int key0, bool need_mask, int kv_valid, float (&m_row)[2],
-    float (&l_row)[2], float (&acc)[D / 8][4]) {
+    const QFrag& qf, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+    int g, int t, float scale2, float bias, int key0, bool need_mask,
+    int kv_valid, float (&m_row)[2], float (&l_row)[2],
+    float (&acc)[D / 8][4]) {
+  if (!MATH) return;
 #pragma unroll
   for (int h = 0; h < BN / HALF; ++h) {
     // S = Q K^T for 16 rows x 64 keys
@@ -104,11 +139,7 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
-      const __nv_bfloat16* qa = sq + r0 * LDS + kk * 16 + 2 * t;
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS + 8);
+      qf.frag(kk, a);
 #pragma unroll
       for (int nt = 0; nt < HALF / 8; ++nt) {
         const __nv_bfloat16* kb =
@@ -122,8 +153,12 @@ __device__ __forceinline__ void attend_tile(
     for (int nt = 0; nt < HALF / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if (MASK == KeyMask::kNever) {
+          sc[nt][e] *= scale2;
+          continue;
+        }
         float x = sc[nt][e] * scale2 + bias;
-        if (need_mask) {
+        if (MASK == KeyMask::kAlways || need_mask) {
           const int key = key0 + h * HALF + nt * 8 + 2 * t + (e & 1);
           if (key >= kv_valid) x = -INFINITY;
         }

@@ -95,9 +95,9 @@ dense_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    attend_tile<true>(sq_s, k_stage(st), v_stage(st), r0, g, t, scale2, 0.f,
-                      j * BN, (j + 1) * BN > kv_valid, kv_valid, m_row,
-                      l_row, acc);
+    attend_tile<true>(QSmem{sq_s, r0, t}, k_stage(st), v_stage(st), g, t,
+                      scale2, 0.f, j * BN, (j + 1) * BN > kv_valid, kv_valid,
+                      m_row, l_row, acc);
     __syncthreads();  // stage st is refilled two iterations on
   }
 

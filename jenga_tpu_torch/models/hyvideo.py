@@ -27,8 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jenga_tpu.curves.blocks import build_curve_plan
-
+from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
 from ..sparse.planner import build_block_mask
@@ -107,8 +106,8 @@ def make_hy_carve(cfg: HYVideoConfig, grid, sa_drop_rate: float,
                   q_rows: int = 1, joint_sel: bool = False,
                   device="cpu") -> HYCarve:
     """Carving spec for a (t, h, w) token grid. The curve plan (order and
-    block adjacency) is the JAX package's numpy ``build_curve_plan``, so
-    both packages carve identically."""
+    block adjacency) comes from the port's copy of the JAX package's numpy
+    ``build_curve_plan``, so both packages carve identically."""
     if q_rows > 8 and not joint_sel:
         raise ValueError(f"q_rows={q_rows} requires joint selection")
     plan = build_curve_plan(tuple(grid), curve, 128)

@@ -33,8 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jenga_tpu.curves.blocks import build_curve_plan
-
+from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
 from ..sparse.planner import build_block_mask
@@ -119,9 +118,9 @@ def wan_rope_tables(cfg: WanConfig, grid, order=None, pad_to=None):
 def make_wan_carve(cfg: WanConfig, grid, sa_drop_rate: float,
                    p_remain: float, curve: str = "sliced", q_rows: int = 1,
                    joint_sel: bool = False, device="cpu") -> WanCarve:
-    """Carving spec for a (t, h, w) token grid from the JAX package's numpy
-    ``build_curve_plan``. ``first_frame_blocks = num_blocks // 21`` keeps
-    the first-frame blocks mutually visible."""
+    """Carving spec for a (t, h, w) token grid from ``build_curve_plan``
+    (the port's copy of the JAX package's). ``first_frame_blocks =
+    num_blocks // 21`` keeps the first-frame blocks mutually visible."""
     if q_rows > 8 and not joint_sel:
         raise ValueError(f"q_rows={q_rows} requires joint selection")
     plan = build_curve_plan(tuple(grid), curve, 128)

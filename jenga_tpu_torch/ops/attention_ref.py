@@ -23,10 +23,12 @@ __all__ = ["block_sparse_attention_reference"]
 def block_sparse_attention_reference(q, k, v, mask, *, sm_scale=None,
                                      text_amp: float = 0.0,
                                      text_start_block: int | None = None,
-                                     seqlen=None):
+                                     seqlen=None, q_start_block: int = 0):
     """``q, k, v`` [B, H, S, D] (S a multiple of 128), ``mask`` bool
     [B, H, S//128, Skv//128]. ``seqlen``: None, an int or a [B] tensor of
-    valid key counts. Returns [B, H, S, D] in q's dtype."""
+    valid key counts. ``q`` may be the rows of a longer query from block
+    ``q_start_block`` on (it places the text_amp boundary). Returns
+    [B, H, S, D] in q's dtype."""
     b, h, s, d = q.shape
     skv = k.shape[2]
     if sm_scale is None:
@@ -38,7 +40,7 @@ def block_sparse_attention_reference(q, k, v, mask, *, sm_scale=None,
     kpos = torch.arange(skv, device=q.device)
     bias = None
     if text_amp != 0.0 and text_start_block is not None:
-        qblk = torch.arange(s, device=q.device) // _BLOCK
+        qblk = torch.arange(s, device=q.device) // _BLOCK + q_start_block
         amp = ((qblk[:, None] < text_start_block)
                & (kpos[None, :] // _BLOCK >= text_start_block))
         bias = torch.where(amp, text_amp, 0.0)

@@ -23,12 +23,10 @@ import math
 import numpy as np
 import torch
 
-from jenga_tpu.configs.validate import validate_hy_options
-from jenga_tpu.diffusion.skip import (HYVIDEO_NON_SKIP_STEPS,
-                                      fixed_compute_schedule)
-
+from ..configs.validate import validate_hy_options
 from ..diffusion.flow_match import flow_match_schedule
 from ..diffusion.prores import trilinear_resize
+from ..diffusion.skip import HYVIDEO_NON_SKIP_STEPS, fixed_compute_schedule
 from ..models import hyvideo as hy
 
 __all__ = ["HYT2VOptions", "HYVideoT2VPipeline"]

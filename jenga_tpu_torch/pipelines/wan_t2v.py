@@ -20,7 +20,7 @@ own carve, both built with the first drop rate (the JAX quirk; ``top_k``
 carries the step's real rate).
 
 The TeaCache schedule is a pure function of the timesteps the model sees
-(``jenga_tpu.diffusion.skip``), with the stage start forced; its metric
+(``diffusion/skip.py``), with the stage start forced; its metric
 is the relative L1 change of the modulation embedding, computed here in
 torch. ``initial_latents``, ``stage2_noise`` and ``on_step`` let a test
 feed both implementations the same random draws and watch the trajectory.
@@ -36,11 +36,9 @@ import math
 import numpy as np
 import torch
 
-from jenga_tpu.configs.validate import validate_wan_options
-from jenga_tpu.diffusion.skip import (TEACACHE_COEFFS,
-                                      teacache_compute_schedule)
-
+from ..configs.validate import validate_wan_options
 from ..diffusion.prores import trilinear_resize
+from ..diffusion.skip import TEACACHE_COEFFS, teacache_compute_schedule
 from ..diffusion.unipc import (unipc_add_noise, unipc_init, unipc_schedule,
                                unipc_step, unipc_step_to_zero)
 from ..models import wan as wan_lib

@@ -1,0 +1,102 @@
+"""Time ``chip_smoke.py``'s phase-2 kernel cases (K1, K1m, K2, D) of two
+checkouts with one timer, in the order A, B, B, A, on one card.
+
+Each run is a fresh process in that checkout's root: it builds the
+checkout's kernels, then runs its ``phase_kernel_cases`` with the
+checkout's own ``time_ms`` replaced by this tree's (``_common.timed``:
+CUDA events over a window of at least 50 ms), and the flex_attention
+yardstick switched off where the checkout has one. The table gives each
+case's ms in the four runs and B's mean against A's.
+
+    python -m jenga_tpu_torch.tools.kernel_cases_ab --a checkout/parent \\
+        --b .
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+from . import _common
+from ._common import gpu_line, resolve_device
+
+__all__ = ["run"]
+
+_CHILD = """
+import json, math, sys, time
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as s
+{timed_src}
+s.time_ms = lambda fn, reps: timed(fn, reps, torch.device("cuda"))[0]
+if hasattr(s, "_flex_ms"):
+    s._flex_ms = lambda rec, *a, **kw: None
+torch.backends.cuda.matmul.allow_tf32 = False
+s.phase_toolchain()
+s.phase_kernel_cases()
+"""
+
+
+def _key(rec):
+    return (rec["kernel"], rec["case"], rec.get("mode"),
+            rec.get("fixed_max"))
+
+
+def _one(root: str, timeout: int):
+    """{case key: ms} of one run of the phase-2 cases in ``root``."""
+    code = _CHILD.format(
+        root=os.path.abspath(root),
+        timed_src=(f"MIN_WINDOW_MS = {_common.MIN_WINDOW_MS!r}\n"
+                   f"MAX_REPS = {_common.MAX_REPS!r}\n"
+                   + inspect.getsource(_common.timed)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise RuntimeError(f"phase 2 in {root} failed "
+                           f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("{") and '"case"' in line:
+            rec = json.loads(line)
+            out[_key(rec)] = rec["ms"]
+    return out
+
+
+def run(a: str, b: str, *, timeout: int = 900):
+    """Returns {"order": [...], "cases": {key: [ms per run]}} for the runs
+    A, B, B, A over the cases both checkouts have."""
+    resolve_device("cuda")
+    order = [("A", a), ("B", b), ("B", b), ("A", a)]
+    runs = [_one(root, timeout) for _, root in order]
+    common = [k for k in runs[1] if all(k in r for r in runs)]
+    return {"order": [name for name, _ in order],
+            "cases": {k: [r[k] for r in runs] for k in common}}
+
+
+def print_table(res):
+    print(f"runs: {' '.join(res['order'])}")
+    for key, ms in res["cases"].items():
+        a = (ms[0] + ms[3]) / 2
+        b = (ms[1] + ms[2]) / 2
+        cells = " ".join(f"{x:9.4f}" for x in ms)
+        print(f"{' '.join(str(x) for x in key):60s} {cells}  B/A "
+              f"{b / a - 1:+.2%}", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--a", required=True, help="checkout A (the parent)")
+    ap.add_argument("--b", default=".", help="checkout B (the change)")
+    args = ap.parse_args()
+    print(gpu_line(), flush=True)
+    print_table(run(args.a, args.b))
+
+
+if __name__ == "__main__":
+    main()

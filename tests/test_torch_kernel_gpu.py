@@ -1,6 +1,7 @@
 """The CUDA kernels (block-sparse attention in its all-member and
-membership modes, dense attention) against their plain torch versions, on
-a CUDA card (skipped without one). This file imports
+membership modes, dense attention, and the probe kernels P1-P4) against
+their plain torch versions, on a CUDA card (skipped without one). This
+file imports
 no JAX, so it also runs on a machine that has only the port's
 dependencies:
 
@@ -11,8 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from jenga_tpu_torch.ops.attention_probe import (EPILOGUE_VARIANTS,
+                                                 SPLIT_VARIANTS,
+                                                 attention_probe,
+                                                 attention_probe_plain)
+from jenga_tpu_torch.ops.block_pool import block_pool, block_pool_plain
 from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
+from jenga_tpu_torch.ops.cross_attention_resident import (
+    cross_attention_resident, cross_attention_resident_plain)
 from jenga_tpu_torch.ops.flash_attention import (dense_attention,
                                                  dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
@@ -166,3 +174,86 @@ def test_dense_kernel_rejects_what_it_does_not_cover(cuda_device):
         dense_attention(q[..., :64], k[..., :64], v[..., :64])
     with pytest.raises(NotImplementedError):
         dense_attention(q, k, v, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS + EPILOGUE_VARIANTS)
+@pytest.mark.parametrize("q_rows", [1, 4])
+def test_probe_kernel_matches_plain_on_card(cuda_device, variant, q_rows):
+    """P1 (no text_amp, every key valid, as the TPU probe) and P2 (text_amp
+    0.5 and a seqlen tail, which oracle and nomax ignore) vs their plain
+    versions, per-row and joint lists with an empty row; 1e-2 covers the
+    bf16 rounding of P and of the output. copy_only writes zeros."""
+    q, k, v, mask = _inputs(18, cuda_device)
+    idx, cnt, _ = block_lists_from_mask(mask, q_rows, q_rows > 1)
+    split = variant in SPLIT_VARIANTS
+    sl = torch.tensor([NB * 128 - (0 if split else 40)], dtype=torch.int32,
+                      device=cuda_device)
+    kw = dict(q_rows=q_rows, text_amp=0.0 if split else 0.5,
+              text_start_block=TSB)
+    before = (attention_probe.split_launches,
+              attention_probe.epilogue_launches)
+    out = attention_probe(variant, q, k, v, idx, cnt, sl, **kw)
+    torch.cuda.synchronize()
+    assert (attention_probe.split_launches,
+            attention_probe.epilogue_launches) == (before[0] + split,
+                                                   before[1] + (not split))
+    ref = attention_probe_plain(variant, q.float(), k.float(), v.float(),
+                                idx, cnt, sl, **kw)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    if variant == "copy_only":
+        assert not out.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk", [(11 * 128, 1), (11 * 128 + 40, 3),
+                                     (32 * 128, 8)])
+def test_block_pool_matches_plain_on_card(cuda_device, s, chunk):
+    """P3 vs the f32 mean of each whole block (a chunk that does not divide
+    the block count, a tail past the last block). Both sum 128 bf16 values
+    in f32, in another order: 1e-4 is far above that rounding."""
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.standard_normal((2, 3, s, 128)),
+                        dtype=torch.bfloat16, device=cuda_device)
+    before = block_pool.launches
+    out = block_pool(x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert block_pool.launches == before + 1
+    assert out.shape == (2, 3, s // 128, 128) and out.dtype == torch.float32
+    assert (out - block_pool_plain(x)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,bq", [(1024, 256), (1000, 1024), (640, 128)])
+def test_cross_attention_resident_matches_plain_on_card(cuda_device, sq, bq):
+    """P4 vs dense f32 softmax attention over all 512 keys, whole and
+    ragged query tiles; 1e-2 covers the bf16 rounding of P and O."""
+    q, k, v = _dense_inputs(20, cuda_device, 2, sq, 512)
+    before = cross_attention_resident.launches
+    out = cross_attention_resident(q, k, v, bq=bq)
+    torch.cuda.synchronize()
+    assert cross_attention_resident.launches == before + 1
+    ref = cross_attention_resident_plain(q.float(), k.float(), v.float())
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_what_they_do_not_cover(cuda_device):
+    q, k, v = _dense_inputs(21, cuda_device, 1, 256, 512)
+    with pytest.raises(ValueError):
+        cross_attention_resident(q, k[:, :, :256], v[:, :, :256])
+    with pytest.raises(ValueError):
+        cross_attention_resident(q, k, v, bq=192)
+    with pytest.raises(TypeError):
+        cross_attention_resident(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):
+        block_pool(q.float())
+    with pytest.raises(ValueError):
+        block_pool(q[..., :64])
+    q, k, v, mask = _inputs(22, cuda_device)
+    idx, cnt, _ = block_lists_from_mask(mask, 1)
+    sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        attention_probe("dense", q, k, v, idx, cnt, sl)
