@@ -1,15 +1,14 @@
-// Device code shared by the port's attention kernels (block_sparse_attn.cu,
-// dense_attn.cu, and the probes attn_probe.cu and cross_attn_resident.cu):
-// tile constants, cp.async loads with a zero-filled ragged edge, the
-// mma.sync m16n8k16 product, one 128-key tile of base-2 softmax attention
-// for a warp's 16 query rows, and the normalising store. The tile's
-// compile-time switches exist for the probes; their defaults are the
-// production kernels' code.
+// Device code of the resident cross-attention probe (P4,
+// cross_attn_resident.cu), P4's own pre-Hopper design: tile constants,
+// cp.async loads with a zero-filled ragged edge, the mma.sync m16n8k16
+// product, one 128-key tile of base-2 online-softmax attention for a
+// warp's 16 query rows, and the normalising store. (The production kernels
+// and P1/P2 run the Hopper mainloop of attn_sm90.cuh.)
 //
 // Layout: a thread block of 8 warps owns 128 query rows (16 per warp);
-// Q and each K|V tile sit in shared memory with a row stride of D + 8 bf16
-// so the mma fragment loads hit distinct banks. Accumulators (S, O, the
-// row max m and the row sum l) are f32 registers: thread (g = lane / 4,
+// each K|V tile sits in shared memory with a row stride of D + 8 bf16 so
+// the mma fragment loads hit distinct banks. Accumulators (S, O, the row
+// max m and the row sum l) are f32 registers: thread (g = lane / 4,
 // t = lane % 4) of a warp holds rows r0 = 16 * warp + g and r0 + 8.
 
 #pragma once
@@ -29,7 +28,6 @@ constexpr int WARPS = 8;       // 8 warps x 16 rows = BM
 constexpr int THREADS = WARPS * 32;
 constexpr int LDS = D + 8;     // smem row stride in bf16 (conflict-free frags)
 constexpr int STAGES = 2;      // K|V ring depth
-constexpr size_t Q_ELEMS = (size_t)BM * LDS;
 constexpr size_t KV_ELEMS = (size_t)BN * LDS;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -86,20 +84,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// Where a warp's Q A-fragments (16 rows x 16 dims per k-step) come from:
-// the Q tile in shared memory (row stride LDS; rows r0 and r0 + 8 of this
-// thread) or registers filled once per query tile.
-struct QSmem {
-  const __nv_bfloat16* sq;
-  int r0, t;
-  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
-    const __nv_bfloat16* qa = sq + r0 * LDS + kk * 16 + 2 * t;
-    a[0] = *reinterpret_cast<const uint32_t*>(qa);
-    a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS);
-    a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS + 8);
-  }
-};
+// A warp's Q A-fragments (16 rows x 16 dims per k-step), filled once per
+// query tile.
 struct QRegs {
   uint32_t f[D / 16][4];
   __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
@@ -108,27 +94,14 @@ struct QRegs {
   }
 };
 
-// Which tiles apply the key mask (keys >= kv_valid to -inf) and the bias.
-enum class KeyMask {
-  kAsNeeded,  // the bias always, the mask where the caller's need_mask says
-  kAlways,    // the bias and the mask in every tile
-  kNever,     // neither (the probes' "no masking" floor)
-};
-
 // One 128-key tile (ks, vs in smem) against this warp's 16 query rows:
-// S = Q K^T * scale2 + bias (base-2 logits), keys >= kv_valid set to -inf
-// as MASK says, then acc += exp2(S - m) V and l += rowsum. ONLINE: m is
-// the running row max (acc and l rescaled when it grows, guarded while it
-// is still -inf); otherwise m is the caller's bound, fixed or constant.
-// MATH = false skips the tile's arithmetic (the copy-only probe).
-template <bool ONLINE, KeyMask MASK = KeyMask::kAsNeeded, bool MATH = true,
-          class QFrag = QSmem>
+// S = Q K^T * scale2 (base-2 logits, every key valid), then the online
+// softmax: m is the running row max (acc and l rescaled when it grows,
+// guarded while it is still -inf), acc += exp2(S - m) V and l += rowsum.
 __device__ __forceinline__ void attend_tile(
-    const QFrag& qf, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-    int g, int t, float scale2, float bias, int key0, bool need_mask,
-    int kv_valid, float (&m_row)[2], float (&l_row)[2],
+    const QRegs& qf, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+    int g, int t, float scale2, float (&m_row)[2], float (&l_row)[2],
     float (&acc)[D / 8][4]) {
-  if (!MATH) return;
 #pragma unroll
   for (int h = 0; h < BN / HALF; ++h) {
     // S = Q K^T for 16 rows x 64 keys
@@ -148,43 +121,29 @@ __device__ __forceinline__ void attend_tile(
                  *reinterpret_cast<const uint32_t*>(kb + 8));
       }
     }
-    // scale, bias, key mask
+    // scale
 #pragma unroll
-    for (int nt = 0; nt < HALF / 8; ++nt) {
+    for (int nt = 0; nt < HALF / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (MASK == KeyMask::kNever) {
-          sc[nt][e] *= scale2;
-          continue;
-        }
-        float x = sc[nt][e] * scale2 + bias;
-        if (MASK == KeyMask::kAlways || need_mask) {
-          const int key = key0 + h * HALF + nt * 8 + 2 * t + (e & 1);
-          if (key >= kv_valid) x = -INFINITY;
-        }
-        sc[nt][e] = x;
-      }
-    }
-    if (ONLINE) {
-      // running max per row; rescale acc and l
+      for (int e = 0; e < 4; ++e) sc[nt][e] *= scale2;
+    // running max per row; rescale acc and l
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float mx = -INFINITY;
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < HALF / 8; ++nt)
-          mx = fmaxf(mx, fmaxf(sc[nt][2 * rr], sc[nt][2 * rr + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_row[rr], mx);
-        const float alpha =
-            (m_new == -INFINITY) ? 1.f : exp2f(m_row[rr] - m_new);
-        m_row[rr] = m_new;
-        l_row[rr] *= alpha;
+      for (int nt = 0; nt < HALF / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(sc[nt][2 * rr], sc[nt][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[rr], mx);
+      const float alpha =
+          (m_new == -INFINITY) ? 1.f : exp2f(m_row[rr] - m_new);
+      m_row[rr] = m_new;
+      l_row[rr] *= alpha;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          acc[dt][2 * rr] *= alpha;
-          acc[dt][2 * rr + 1] *= alpha;
-        }
+      for (int dt = 0; dt < D / 8; ++dt) {
+        acc[dt][2 * rr] *= alpha;
+        acc[dt][2 * rr + 1] *= alpha;
       }
     }
     // P = exp2(S - m), bf16 A-fragments for P V

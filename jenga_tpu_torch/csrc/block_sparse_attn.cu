@@ -1,12 +1,14 @@
 // Block-sparse attention over per-group KV block lists, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of jenga_tpu/ops/block_sparse_attention.py:
-//   * K1 `_kernel_grouped` in its all-member (joint-selection) mode, reached
-//     via `block_sparse_attention_grouped` / `grouped_attention_from_mask`;
+//   * K1 `_kernel_grouped` (:409) in its all-member (joint-selection) mode,
+//     reached via `block_sparse_attention_grouped` (:692) /
+//     `grouped_attention_from_mask`;
 //   * K1m, the same kernel with `all_member=False`: the group's list is the
 //     union of its rows' selections and a membership word per listed block
 //     says which rows (bit r = row r of the group) selected it;
-//   * K2 `_kernel`, reached via `block_sparse_attention` (per-row lists).
+//   * K2 `_kernel` (:49), reached via `block_sparse_attention` (:284,
+//     per-row lists).
 // One launch serves all three: each 128-row query tile reads the list of
 // its group, `group = query_block / q_rows` (q_rows = 1 is K2). Without
 // membership words every row of the group attends the whole list; with
@@ -23,35 +25,23 @@
 // (FIXED_MAX, the default, as on the TPU) or the running row max (the
 // classic online softmax).
 //
-// What bounds it on the card: at the main path's density (Jenga-Base,
-// ~25-35% of the key blocks per row) each 128x128 tile of S costs 4 MFLOP
-// of tensor-core work against 64 KB of K|V gathered, ~64 FLOP/byte if
-// nothing were reused: below the H100's ~295 FLOP/byte ridge, so the
-// gather is the limit. The design answers with reuse rather than with
-// Mosaic's DMA machinery: a whole 128-row query block shares one K|V tile
-// in shared memory (8 warps x 16 rows), the q_rows=8 joint groups give the
-// 8 tiles of a group one identical list so their gathers hit L2, and a
-// 2-stage cp.async ring fetches block j+1 while block j computes. The
-// matrix products are mma.sync m16n8k16 bf16 with f32 accumulators held
-// in registers (wgmma and TMA are left for a later revision); the tile
-// body is shared with the dense kernel (attn_tile.cuh), and the loop with
-// the probe kernels (block_sparse_kernel.cuh).
-//
-// Membership mode keeps one thread block per query block: the block first
-// compacts the ids of its own member blocks, in list order, into shared
-// memory (a warp ballot per 32 list entries), then runs the same ring over
-// that list, so the prefetch always fetches the next member block and no
-// block is gathered that the tile does not use. Each tile thus gathers
-// exactly its own selection, as K2 does; the TPU's saving, one DMA per
-// union block for 8 rows, has its counterpart here only in L2 hits between
-// the 8 tiles of a group that run side by side.
+// The kernel is the block-sparse instance of the Hopper mainloop in
+// attn_sm90.cuh, which states what bounds it (the tensor cores: 4.36 ms
+// for the 4.31 TFLOP of the HunyuanVideo main shape) and its design: a TMA
+// producer warp walks the tile's list (in membership mode it keeps, with a
+// warp ballot per 32 entries, only the tile's own member blocks, in list
+// order) and feeds a 2-stage mbarrier ring of K|V tiles; two consumer
+// warpgroups of 64 query rows run QK^T and PV on wgmma. The q_rows = 8
+// joint groups give the 8 tiles of a group one identical list, so their
+// gathers hit L2; in membership mode each tile gathers exactly its own
+// selection, as K2 does.
 //
 // Plain C interface (loaded with ctypes); the launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
-#include "block_sparse_kernel.cuh"
+#include "attn_sm90.cuh"
 
-using namespace attn;
+using namespace sm90;
 
 // `members` null: every row of a group attends its whole list (K1, K2).
 extern "C" int bsa_forward(const void* q, const void* k, const void* v,

@@ -11,7 +11,7 @@
 // Math (per query row i): s_ij = (q_i . k_j) * sm_scale * log2(e),
 // o_i = sum_j exp2(s_ij - m_i) v_j / sum_j exp2(s_ij - m_i) over j < 512,
 // the exact softmax (m_i the running row max over the four 128-key tiles;
-// the shared tile body of attn_tile.cuh with its key mask switched off).
+// the mma.sync tile body of attn_tile.cuh).
 //
 // Shared memory layout (the trap: K|V for 512 keys is 262,144 B, over the
 // 232,448 B a thread block may have):
@@ -117,9 +117,9 @@ xattn_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    attend_tile<true, KeyMask::kNever>(
-        qf, ks + (size_t)kt * KV_ELEMS, vring + (size_t)(j % STAGES) * KV_ELEMS,
-        g, t, scale2, 0.f, 0, false, NKEYS, m_row, l_row, acc);
+    attend_tile(qf, ks + (size_t)kt * KV_ELEMS,
+                vring + (size_t)(j % STAGES) * KV_ELEMS, g, t, scale2, m_row,
+                l_row, acc);
     __syncthreads();  // stage j % STAGES is refilled two steps on
 
     if (kt == NKT - 1)

@@ -2,7 +2,7 @@
 each variant and the launch counters.
 
 The kernels (``csrc/attn_probe.cu``) are instances of the production
-block-sparse loop (``csrc/block_sparse_kernel.cuh``) with parts of its work
+block-sparse mainloop (``csrc/attn_sm90.cuh``) with parts of its work
 switched off, and replace the JAX package's Pallas TPU probes P1
 (``tools/kernel_split_probe.py:140``, the gather/compute split) and P2
 (``tools/epilogue_probe.py:250``, the epilogue variants). No main path

@@ -10,8 +10,13 @@ the production kernel (``ops/attention_probe.py``) run in two modes, K2
 main path's):
 
   both          the production kernel (text_amp 0, seqlen = S)
-  copy_only     the cp.async ring over the same blocks, no tile math
+  copy_only     the producer warp's TMA ring over the same blocks; the
+                consumers wait on and release each stage, no tile math
   compute_only  the tile math over each group's first block, no gather
+
+With the producer warp feeding the consumer warpgroups, the gather
+overlaps the math: copy_only + compute_only exceed both by what the
+overlap hides.
 
 The TPU tool also swept its DMA group width (8-48 blocks); the card's
 ring holds one block per stage, so there is nothing to sweep.

@@ -107,6 +107,61 @@ def test_membership_kernel_matches_plain_and_per_row(cuda_device, q_rows,
     assert torch.equal(out, per_row)
 
 
+def _ring_edge_inputs(seed, device, h=2):
+    """Two samples whose rows attend 0, 1, 2 and all NB blocks, so the
+    2-stage K|V ring is never filled, filled once and wrapped five times
+    (the mbarrier parity), with seqlen cutting inside block 5 in sample 0
+    (row 3's blocks all lie past it: a row of zeros) and inside the last
+    text block in sample 1."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, h, NB * 128, 128)),
+                               dtype=torch.bfloat16, device=device)
+               for _ in range(3))
+    m = np.zeros((2, h, NB, NB), bool)
+    m[:, :, 1, 4] = True                 # n = 1 (row 0: n = 0)
+    m[:, :, 2, [0, 7]] = True
+    m[:, :, 3, [8, 10]] = True           # past seqlen in sample 0
+    m[:, :, 4, [2, 5]] = True            # block 5 cut by seqlen
+    m[:, :, 5:] = True                   # n = NB: the boundary group too
+    m[1, 1, 6, 9:] = False               # video row, no text block
+    sl = torch.tensor([5 * 128 + 17, NB * 128 - 40], dtype=torch.int32,
+                      device=device)
+    return q, k, v, torch.as_tensor(m, device=device), sl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,q_rows", [("per_row", 1), ("joint", 8),
+                                         ("members", 8), ("members", 3)])
+@pytest.mark.parametrize("fixed_max", [True, False])
+def test_kernel_ring_and_mask_edges_on_card(cuda_device, mode, q_rows,
+                                            fixed_max):
+    """The traps of the TMA ring and the masks, vs the plain version: rows
+    with n = 0, 1, 2 and n past the ring, a membership group in which one
+    query block has no bit (row 0), seqlen inside a block and past whole
+    listed blocks, text_amp != 0 on the video/text boundary group, both
+    epilogues. A row with no valid key stores zeros; the membership mode
+    equals the per-row mode on the same mask."""
+    q, k, v, mask, sl = _ring_edge_inputs(23, cuda_device)
+    idx, cnt, mem = block_lists_from_mask(mask, q_rows, mode == "joint")
+    kw = dict(text_amp=-0.7, text_start_block=TSB, fixed_max=fixed_max)
+    out = block_sparse_attention(q, k, v, idx, cnt, sl, q_rows=q_rows,
+                                 members=mem, **kw)
+    torch.cuda.synchronize()
+    ref = block_sparse_attention_plain(q.float(), k.float(), v.float(), idx,
+                                       cnt, sl, q_rows=q_rows, members=mem,
+                                       **kw)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    if mode == "joint":
+        return
+    assert not out[:, :, :128].any()                # n = 0
+    assert not out[0, :, 3 * 128:4 * 128].any()     # every key masked
+    if mode == "members":
+        idx1, cnt1, _ = block_lists_from_mask(mask, 1)
+        assert torch.equal(out, block_sparse_attention(
+            q, k, v, idx1, cnt1, sl, **kw))
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_f32_operands(cuda_device):
     q, k, v, mask = _inputs(13, cuda_device)
@@ -146,10 +201,15 @@ def _dense_inputs(seed, device, b, sq, skv, h=2):
     (1, 1024, 1024, None),          # whole tiles
     (2, 1000, 300, [0, 137]),       # ragged Sq/Skv; an empty sample
     (2, 700, 512, None),            # Wan cross-attention's 512 keys
-    (1, 1408, 1408, [1368])])       # HY joint length with padded text
+    (1, 1408, 1408, [1368]),        # HY joint length with padded text
+    (2, 1000, 300, None),           # ragged Sq/Skv, no kv_len: B*H = 4
+    (3, 130, 257, [257, 1, 128])])  # 3 tiles (past the ring), 1, 1 whole
 def test_dense_kernel_matches_plain_on_card(cuda_device, b, sq, skv, kv_len):
     """The dense kernel vs its plain version, bf16 operands; 1e-2 covers the
-    bf16 rounding of P and of the output. kv_len 0 gives zeros."""
+    bf16 rounding of P and of the output. kv_len 0 gives zeros. With
+    several (batch, head) slices and a ragged Sq or Skv, the rows past a
+    slice's end must read as zeros (a 2-D tensor map would read the next
+    head's)."""
     q, k, v = _dense_inputs(14, cuda_device, b, sq, skv)
     kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
                                                   device=cuda_device)
