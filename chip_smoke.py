@@ -9,7 +9,8 @@ result line):
      limit; builds all five kernel sources from jenga_tpu_torch/csrc/ (one
      nvcc per source, started together; sm_90a) and prints ptxas' resource
      use; fails if ptxas reports spill stores or loads in a production
-     instance (K1/K1m/K2 fixed and online max, D);
+     instance (K1/K1m/K2 fixed and online max, D) or in P4, which has its
+     own Hopper design;
   2. kernels vs their plain torch versions on the card, max abs error
      <= 1e-2 in each case, each case timed against the plain version and
      beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
@@ -73,7 +74,13 @@ result line):
      head's logits over all keys would be 53 GB): P1 `both` and P2
      `fixedmax` over every row, the others over the first, middle and
      last 16 blocks. P1, P2 and P4 within 1e-2 max abs error and 2e-2
-     relative (L2) error.
+     relative (L2) error;
+  7. the CLI's --tiny on the card: `hyvideo-t2v --tiny --latents-only` and
+     `wan-t2v --tiny --latents-only` with the CLI's default device (the
+     tiny models are bf16 with head dim 128 there), each through the CLI's
+     entry point in a fresh process; exit 0, latents finite and non-zero,
+     and the kernels launched (HunyuanVideo: the block-sparse kernel; Wan:
+     it and D).
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -87,6 +94,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -124,6 +132,19 @@ DESIGN = ("sm_90a mainloop csrc/attn_sm90.cuh: a TMA producer warp "
           "(3-D tensor maps, 128-byte swizzle), two wgmma consumer "
           "warpgroups of 64 query rows (setmaxnreg 232), S = QK^T "
           "m64n128k16 from shared memory, O += PV with P from registers")
+# the design of P4 (its kernels-line `design`)
+P4_DESIGN = ("sm_90a csrc/cross_attn_resident.cu on the attn_sm90.cuh "
+             "primitives (not its mainloop): K of all 512 keys (128 KB) "
+             "loaded once per thread block under one barrier and resident; "
+             "a TMA producer warp (setmaxnreg 40) loading each query tile's "
+             "Q into one buffer and V through a 2-stage mbarrier ring; two "
+             "wgmma consumer warpgroups of 64 rows (setmaxnreg 232) copying "
+             "Q into registers as it lands (the next Q loads during the "
+             "whole tile), S = QK^T with Q from registers, four steps per "
+             "query tile each issuing PV of key tile kt-1 with S of the next "
+             "key tile (the last with the next query tile's first), the "
+             "warpgroups taking turns on two named barriers (ping-pong); "
+             "exact online softmax")
 
 
 def fail(msg: str):
@@ -197,14 +218,15 @@ def phase_toolchain():
                                 "ptxas.log")).read()
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "arning")):
+                                       "arning", "Performance")):
                 print(f"   ptxas: {line.strip()}")
         spills = [(int(st), int(ld)) for st, ld in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-        if mod in (bsa, fa) and (not spills or any(st or ld for st, ld
-                                                   in spills)):
+        if mod in (bsa, fa, xr) and (not spills or any(st or ld for st, ld
+                                                       in spills)):
             fail(f"{mod.KERNEL_SOURCE.name}: ptxas reports spills (or no "
-                 f"spill line) in a production instance: {spills}")
+                 f"spill line) in a production or redesigned instance: "
+                 f"{spills}")
     done(t0)
 
 
@@ -1022,7 +1044,51 @@ def _probe_entries(probes, runs):
         "plain_ms": r4["plain_ms"],
         "bound_ms": p4_bound[0], "bound_by": p4_bound[1],
         "library_ms": r4["attn"]["sdpa"]["ms"],
+        "design": P4_DESIGN,
+        "d_same_operands_ms": r4["attn"]["D"]["ms"],
     }]
+
+
+# phase 7: the CLI's entry point in a fresh process, then the launch counts
+_CLI_CHILD = """
+import json, sys
+from jenga_tpu_torch import cli
+from jenga_tpu_torch.ops.block_sparse_attention import block_sparse_attention
+from jenga_tpu_torch.ops.flash_attention import dense_attention
+cli.main(sys.argv[1:])
+print(json.dumps({"block_sparse_attn": block_sparse_attention.launches,
+                  "dense_attn": dense_attention.launches}))
+"""
+CLI_TINY = (("hyvideo-t2v", ("block_sparse_attn",)),
+            ("wan-t2v", ("block_sparse_attn", "dense_attn")))
+
+
+def phase_cli_tiny():
+    """Phase 7: ``<cmd> --tiny --latents-only`` with the default device."""
+    import numpy as np
+    t0 = phase("7. CLI --tiny on the card, default device")
+    with tempfile.TemporaryDirectory() as tmp:
+        for cmd, kernels in CLI_TINY:
+            path = os.path.join(tmp, f"{cmd}.npy")
+            tc = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _CLI_CHILD, cmd, "--tiny",
+                 "--latents-only", "--save-path", path],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            secs = time.perf_counter() - tc
+            if proc.returncode:
+                fail(f"{cmd} --tiny exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            counts = json.loads(proc.stdout.strip().splitlines()[-1])
+            lat = np.load(path)
+            print(f"   {cmd} --tiny: {secs:.3f} s, latents {lat.shape}, "
+                  f"kernel launches {counts}", flush=True)
+            if not (np.isfinite(lat).all() and np.abs(lat).max() > 0):
+                fail(f"{cmd} --tiny: latents are not finite and non-zero")
+            idle = [k for k in kernels if not counts[k]]
+            if idle:
+                fail(f"{cmd} --tiny launched no {idle}")
+    done(t0)
 
 
 def main():
@@ -1043,6 +1109,7 @@ def main():
     wan, wan_turbo = phase_wan_main_path()
     rel = phase_end_to_end()
     probes = phase_probes()
+    phase_cli_tiny()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:

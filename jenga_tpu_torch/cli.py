@@ -23,6 +23,7 @@ and the output is the final latents (.npy).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -51,7 +52,8 @@ def _common(p: argparse.ArgumentParser):
                         "union list with membership words")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
-                   help="tiny random model (smoke runs)")
+                   help="tiny random model (smoke runs): bf16 with head "
+                        "dim 128 on cuda, f32 with head dim 64 on cpu")
     p.add_argument("--latents-only", action="store_true",
                    help="dump latents .npy (the only output until the VAE "
                         "is ported)")
@@ -76,18 +78,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _tiny_config():
+def _tiny_config(device: str):
+    """The tiny HunyuanVideo model: f32 with head dim 64 on the CPU; on the
+    card, where the attention kernels take only bf16 and head dim 128, bf16
+    with two heads of 128 and the published RoPE split."""
     from .models.hyvideo import HYVideoConfig
-    return HYVideoConfig(hidden_size=128, heads_num=2, double_blocks=1,
-                         single_blocks=1, rope_dim_list=(16, 24, 24),
-                         text_states_dim=64, text_states_dim_2=24,
-                         refiner_depth=1, dtype="float32")
+    cfg = HYVideoConfig(hidden_size=128, heads_num=2, double_blocks=1,
+                        single_blocks=1, rope_dim_list=(16, 24, 24),
+                        text_states_dim=64, text_states_dim_2=24,
+                        refiner_depth=1, dtype="float32")
+    if device == "cuda":
+        cfg = dataclasses.replace(cfg, hidden_size=256,
+                                  rope_dim_list=(16, 56, 56),
+                                  dtype="bfloat16")
+    return cfg
 
 
-def _tiny_wan_config():
+def _tiny_wan_config(device: str):
+    """The tiny Wan model: f32 with head dim 64 on the CPU, bf16 with two
+    heads of 128 on the card (see ``_tiny_config``)."""
     from .models.wan import WanConfig
-    return WanConfig(dim=128, ffn_dim=256, freq_dim=32, num_heads=2,
-                     num_layers=2, text_dim=64, text_len=16, dtype="float32")
+    cfg = WanConfig(dim=128, ffn_dim=256, freq_dim=32, num_heads=2,
+                    num_layers=2, text_dim=64, text_len=16, dtype="float32")
+    if device == "cuda":
+        cfg = dataclasses.replace(cfg, dim=256, dtype="bfloat16")
+    return cfg
 
 
 def _save_latents(args, out, t0):
@@ -118,7 +133,7 @@ def run_hyvideo_t2v(args):
         over["joint_sel"] = False
     opts = get_hy_preset(args.preset, **over)
 
-    cfg = _tiny_config() if args.tiny else HUNYUAN_VIDEO_T2V
+    cfg = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
     sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed)
     n = sampler.TEXT_LEN
     txt = np.zeros((n, cfg.text_states_dim), np.float32)
@@ -154,7 +169,7 @@ def run_wan_t2v(args):
                          "only)")
     opts = get_wan_preset(args.preset, **over)
 
-    cfg = _tiny_wan_config() if args.tiny else WAN_T2V_1_3B
+    cfg = _tiny_wan_config(args.device) if args.tiny else WAN_T2V_1_3B
     sampler = WanSampler(cfg, device=args.device, seed=args.seed)
     ctx = np.zeros((64, cfg.text_dim), np.float32)
     t0 = time.time()

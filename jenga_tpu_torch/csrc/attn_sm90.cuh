@@ -13,6 +13,8 @@
 //     (jenga_tpu/ops/flash_attention.py:73, `pl_flash` :92);
 //   * the probes P1 `variant` (tools/kernel_split_probe.py:140) and P2
 //     `run_variant` (tools/epilogue_probe.py:250), as switched instances.
+// The probe P4 (cross_attn_resident.cu) uses its primitives, not its
+// mainloop.
 //
 // What bounds it: the tensor cores. At the HunyuanVideo main shape (1x24x
 // 32,768, d 128, joint q8 lists at density ~0.33) a launch computes 4.31
@@ -258,6 +260,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : SM90_ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d = A B (+ d if accumulate) with A in registers and B K-major in shared
+// memory (P4's S = Q K^T with Q held in registers).
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : SM90_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 #undef SM90_ACC64

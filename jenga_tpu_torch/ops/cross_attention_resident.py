@@ -5,8 +5,10 @@ The kernel (``csrc/cross_attn_resident.cu``) replaces the JAX package's
 Pallas TPU probe ``cross_resident`` (``tools/wan_overhead_probe2.py:122``):
 Wan's cross-attention, every query row attending all 512 text keys with
 no mask, one thread block staying on one (batch, head) for ``bq`` query
-rows with K resident in shared memory. No main path calls it: the model's
-cross-attention runs kernel D (``ops/flash_attention.py``), and the port's
+rows with K resident in shared memory, on the Hopper primitives of
+``csrc/attn_sm90.cuh`` (a TMA producer warp, two wgmma consumer
+warpgroups). No main path calls it: the model's cross-attention runs
+kernel D (``ops/flash_attention.py``), and the port's
 ``tools/wan_overhead_probe2.py`` times the two on the same operands.
 
 ``cross_attention_resident`` launches the kernel for CUDA tensors and takes
@@ -53,8 +55,9 @@ def cross_attention_resident_plain(q, k, v, *, sm_scale=None):
 def cross_attention_resident(q, k, v, *, bq: int = 2048, sm_scale=None):
     """Softmax attention of ``q`` [B, H, S, 128] over all 512 keys of
     ``k``, ``v`` [B, H, 512, 128] (bf16 on CUDA); a thread block covers
-    ``bq`` query rows (a multiple of 128) of one (batch, head). Returns
-    [B, H, S, 128] in q's dtype.
+    ``bq`` query rows (a multiple of 128) of one (batch, head); ``sm_scale``
+    (default 128 ** -0.5) must be positive. Returns [B, H, S, 128] in q's
+    dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -78,6 +81,8 @@ def cross_attention_resident(q, k, v, *, bq: int = 2048, sm_scale=None):
     if bq < _BLOCK or bq % _BLOCK:
         raise ValueError(f"bq must be a positive multiple of {_BLOCK}, got "
                          f"{bq}")
+    if not sm_scale > 0:
+        raise ValueError(f"sm_scale must be positive, got {sm_scale}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for x in (q, k, v):
         if x.data_ptr() % 16:

@@ -162,6 +162,27 @@ def test_cli_tiny_cpu(tmp_path):
     assert lat.shape == LATENT and np.isfinite(lat).all()
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_tiny_configs_by_device(device):
+    """--tiny builds configs the device can run: on the card bf16 with head
+    dim 128 (the attention kernels take nothing else) and a RoPE split
+    that covers the head; on the CPU the f32 head-dim-64 models the CPU
+    CLI tests run. Only the config objects are built."""
+    from jenga_tpu_torch.cli import _tiny_config, _tiny_wan_config
+    hy, wan = _tiny_config(device), _tiny_wan_config(device)
+    assert sum(hy.rope_dim_list) == hy.head_dim
+    assert sum(wan.rope_dims) == wan.head_dim
+    if device == "cuda":
+        assert hy.dtype == wan.dtype == "bfloat16"
+        assert hy.head_dim == wan.head_dim == 128
+        assert hy.rope_dim_list == thy.HUNYUAN_VIDEO_T2V.rope_dim_list
+    else:
+        assert hy.dtype == wan.dtype == "float32"
+        assert hy.head_dim == wan.head_dim == 64
+        assert (hy.hidden_size, hy.rope_dim_list, wan.dim) == (
+            128, (16, 24, 24), 128)
+
+
 def test_port_imports_no_jax():
     r = _run(["-c", "import sys; import jenga_tpu_torch.cli, "
               "jenga_tpu_torch.runtime, jenga_tpu_torch.pipelines."

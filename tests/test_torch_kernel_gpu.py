@@ -1,9 +1,8 @@
 """The CUDA kernels (block-sparse attention in its all-member and
 membership modes, dense attention, and the probe kernels P1-P4) against
-their plain torch versions, on a CUDA card (skipped without one). This
-file imports
-no JAX, so it also runs on a machine that has only the port's
-dependencies:
+their plain torch versions, and the CLI's ``--tiny`` runs, on a CUDA card
+(skipped without one). This file imports no JAX, so it also runs on a
+machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
 """
@@ -285,18 +284,47 @@ def test_block_pool_matches_plain_on_card(cuda_device, s, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq,bq", [(1024, 256), (1000, 1024), (640, 128)])
-def test_cross_attention_resident_matches_plain_on_card(cuda_device, sq, bq):
-    """P4 vs dense f32 softmax attention over all 512 keys, whole and
-    ragged query tiles; 1e-2 covers the bf16 rounding of P and O."""
-    q, k, v = _dense_inputs(20, cuda_device, 2, sq, 512)
+@pytest.mark.parametrize("b,h,sq,bq,peaked", [
+    (2, 2, 1024, 256, False),     # 2 query tiles per block
+    (2, 2, 1000, 1024, False),    # bq > sq, ragged last tile
+    (2, 2, 640, 128, False),      # one query tile per block
+    (1, 3, 2048, 1024, False),    # 8 tiles per block: K reused, Q prefetched
+    (1, 3, 1000, 256, False),     # ragged last tile of the last block
+    (3, 1, 300, 2048, False),     # bq > sq, 3 (b*h) slices
+    (1, 3, 1000, 512, True),      # logits spanning > 30, max in tile 3
+])
+def test_cross_attention_resident_matches_plain_on_card(cuda_device, b, h,
+                                                        sq, bq, peaked):
+    """P4 vs dense f32 softmax attention over all 512 keys: whole and
+    ragged query tiles, several tiles per thread block (K loaded once, the
+    next tile's Q loaded during this one), bq > sq, and at least 3 (b*h) slices
+    with their own K and a ragged sq, so a read that crossed into the next
+    head's rows would show. In the peaked case q is scaled by 2 and key
+    tile kt by kt + 1, so the row max grows tile by tile and the online
+    rescale runs with factors far below 1; v is halved there to keep |o|
+    under 2, where bf16's rounding stays inside the absolute bound. 1e-2
+    max abs and 2e-2 relative L2 (the smoke's PROBE_REL_TOL) cover the
+    bf16 rounding of P and O."""
+    q, k, v = _dense_inputs(20, cuda_device, b, sq, 512, h=h)
+    if peaked:
+        q = q * 2
+        k = k * torch.arange(1, 5, device=cuda_device).repeat_interleave(
+            128)[:, None].to(k.dtype)
+        v = v * 0.5
+        logits = (q.float() @ k.float().transpose(-1, -2)) * 128 ** -0.5
+        span = logits.amax(-1) - logits.amin(-1)
+        assert span.median().item() > 30
+        assert (logits[..., 384:].amax(-1) > logits[..., :384].amax(-1)
+                ).float().mean().item() > 0.8
     before = cross_attention_resident.launches
     out = cross_attention_resident(q, k, v, bq=bq)
     torch.cuda.synchronize()
     assert cross_attention_resident.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
     ref = cross_attention_resident_plain(q.float(), k.float(), v.float())
     assert torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= 1e-2
+    assert ((out.float() - ref).norm() / ref.norm()).item() <= 2e-2
 
 
 @pytest.mark.gpu
@@ -317,3 +345,28 @@ def test_probe_kernels_reject_what_they_do_not_cover(cuda_device):
     sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         attention_probe("dense", q, k, v, idx, cnt, sl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("argv,kernels", [
+    (["hyvideo-t2v", "--video-size", "256", "128", "--video-length", "33",
+      "--infer-steps", "3"], ("block_sparse_attn",)),
+    (["wan-t2v", "--video-size", "224", "128", "--video-length", "17",
+      "--infer-steps", "6"], ("block_sparse_attn", "dense_attn")),
+])
+def test_cli_tiny_runs_on_card(cuda_device, tmp_path, argv, kernels):
+    """``--tiny`` with the CLI's default device: the tiny models are bf16
+    with head dim 128 there, so their attention launches the kernels (the
+    block-sparse kernel on carved steps; D for Wan's cross-attention and
+    dense warm-up) instead of raising. Latents finite."""
+    from jenga_tpu_torch import cli
+    counters = {"block_sparse_attn": block_sparse_attention,
+                "dense_attn": dense_attention}
+    before = {name: fn.launches for name, fn in counters.items()}
+    out = tmp_path / "lat.npy"
+    cli.main([argv[0], "--tiny", "--latents-only", "--save-path", str(out),
+              *argv[1:]])
+    lat = np.load(out)
+    assert lat.ndim == 4 and np.isfinite(lat).all() and np.abs(lat).max() > 0
+    for name in kernels:
+        assert counters[name].launches > before[name], name
