@@ -29,8 +29,12 @@ result line):
      text_amp 0.431) with an empty row, both epilogues; (c) the Wan Turbo
      stage-0 shape (B=2, 141 blocks, first_frame_blocks 6, seqlen
      18,018). Dense: Wan self-attention, Wan cross-attention over 512
-     keys, HunyuanVideo's joint dense shape with kv_len, and a ragged
-     small case with an empty sample (which must be all zeros);
+     keys, HunyuanVideo's joint dense shape with kv_len, a ragged small
+     case with an empty sample (which must be all zeros), and Wan2.1-14B's
+     two cross-attentions at 40 heads over 32,768 query rows: the 257 CLIP
+     image keys (a ragged last key tile) and the 512 text keys, each with
+     SDPA beside it. K1 also at Wan2.1-14B's self-attention shape (B=2, 40
+     heads, 256 blocks, joint q8 with first-frame forcing), with flex;
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
@@ -54,14 +58,37 @@ result line):
      host schedule holds a dense step, a carved step in each stage and,
      if 12 steps allow it, a skip; stage 0 at latent 16x21x44x78. Latents
      (16, 21, 60, 104) and launch counts as in phase 4;
+  4c. main path, HunyuanVideo-I2V token_replace at full width and depth
+     (in_channels 16, 20 + 40 blocks, bf16, seeded init, head perturbed)
+     through HunyuanVideoSampler.predict_i2v with the options
+     `hyvideo-i2v --preset base` builds, 1280x720x33f, 8 steps, seeded
+     non-zero conditioning latents (one per stage); latents finite and
+     non-zero, frame 0 equal to the conditioning latent bit for bit after
+     every step, the block-sparse kernel launched 60 x the computed steps
+     of the host's skip schedule;
+  4d. the same for latent_concat (in_channels 33) at full width cut to
+     2 + 2 blocks, 4 steps: latents and launches (4 x computed steps);
+  4e. main path, Wan2.1-I2V-14B at full width and depth (5120 dim, 40
+     heads, 40 layers, bf16, seeded init, head perturbed) through
+     WanSampler.generate_i2v with the wan-i2v options at max_area 832x480
+     (shift 3.0), latent 16x21x60x104 (32,760 tokens, CFG batch 2), seeded
+     image latent, CLIP tokens and prompts; the step count is the smallest
+     from 6 (ret-steps polynomial first, then the other) whose host plan
+     holds a dense, a carved and a skipped step. Latents finite and
+     non-zero; block-sparse launches = 40 x carved steps, dense launches =
+     40 x dense steps + 80 x computed steps (text and image
+     cross-attention). Each full-width model is freed before the next is
+     built, and each phase prints its peak memory;
   5. end to end, kernels vs plain attention (both dispatch points
      patched): HunyuanVideo at full width cut to 1 double + 1 single
      block, carved and dense (carve=None, the dense arm), and at the
      Turbo stage-0 grid with text_amp 0.431 in joint and per-row
      (membership) selection; Wan 1.3B at full width cut to 2 layers at
      832x480x81f, carved and dense fallback, and at the Turbo stage-0
-     grid in per-row selection. Each relative error within the stated
-     bound;
+     grid in per-row selection; HunyuanVideo-I2V token_replace cut to 1 +
+     1 blocks, carved and dense; Wan2.1-I2V-14B cut to 2 layers at
+     832x480x81f with y and CLIP tokens, carved and dense fallback. Each
+     relative error within the stated bound;
   6. probes: the four probe tools' run() at their own shapes, with the
      launch counts set to 0 before and read after (each probe kernel must
      launch; phases 3-4b must have launched none): P1 (the gather/compute
@@ -75,12 +102,12 @@ result line):
      `fixedmax` over every row, the others over the first, middle and
      last 16 blocks. P1, P2 and P4 within 1e-2 max abs error and 2e-2
      relative (L2) error;
-  7. the CLI's --tiny on the card: `hyvideo-t2v --tiny --latents-only` and
-     `wan-t2v --tiny --latents-only` with the CLI's default device (the
-     tiny models are bf16 with head dim 128 there), each through the CLI's
-     entry point in a fresh process; exit 0, latents finite and non-zero,
-     and the kernels launched (HunyuanVideo: the block-sparse kernel; Wan:
-     it and D).
+  7. the CLI's --tiny on the card: `hyvideo-t2v`, `wan-t2v`,
+     `hyvideo-i2v` and `wan-i2v`, each `--tiny --latents-only` with the
+     CLI's default device (the tiny models are bf16 with head dim 128
+     there) through the CLI's entry point in a fresh process; exit 0,
+     latents finite and non-zero, and the kernels launched (HunyuanVideo:
+     the block-sparse kernel; Wan: it and D).
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -468,6 +495,20 @@ def phase_kernel_cases():
                       nkb, 0.0, True)[0])
     del q, k, v
 
+    # Wan2.1-14B's self-attention shape (T2V and I2V): the same grid and
+    # carve at 40 heads
+    extra = {}
+    q, k, v = _qkv(gen, 2, 40, s)
+    idx, cnt = _planner_lists(
+        q, k, nkb, nkb, p_remain=carve.p_remain,
+        block_neighbors=carve.block_neighbors,
+        first_frame_blocks=carve.first_frame_blocks)
+    extra["k1_wan14b"], _ = _case("wan14b_q8_joint_first_frame", q, k, v,
+                                  idx, cnt, sl, 8, nkb, 0.0, True,
+                                  library=True)
+    recs.append(extra["k1_wan14b"])
+    del q, k, v, idx, cnt
+
     # (b) HY Turbo stage 0: 17,820 video + 256 text tokens = 142 blocks,
     # tsb 140; a video row with no block at all; both epilogues
     s, nkb, tsb = 142 * 128, 142, 140
@@ -520,9 +561,20 @@ def phase_kernel_cases():
     if out[0].any():
         fail("d_ragged_small: the kv_len=0 sample is not all zeros")
     del q, k, v, out
+    # Wan2.1-I2V-14B's two cross-attentions per block, 40 heads over the
+    # padded 32,768 query rows: (e) the 257 CLIP image keys (a ragged last
+    # key tile of one key), (f) the 512 text keys
+    q = _qkv(gen, 2, 40, 32768)[0]
+    for name, skv in (("e_wan14b_image_cross", 257),
+                      ("f_wan14b_text_cross", 512)):
+        _, k, v = _qkv(gen, 2, 40, skv)
+        extra[name], _ = _dense_case(name, q, k, v)
+        dense.append(extra[name])
+        del k, v
+    del q
     torch.cuda.empty_cache()
     done(t0)
-    return recs, main, member, dense
+    return recs, main, member, dense, extra
 
 
 def _perturb(model, gen, scale=0.02):
@@ -834,6 +886,181 @@ def phase_wan_main_path():
     return base, turbo
 
 
+def _free():
+    """Hand a full-width model's memory back before the next is built (the
+    caller has deleted its references)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape):
+    """One HunyuanVideo-I2V generation with launch counts; under
+    token_replace frame 0 must equal the stage's conditioning latent bit
+    for bit after every step. Checks the latents and the counts against
+    the host's skip schedule."""
+    import torch
+    cfg = sampler.cfg
+    n = opts.num_inference_steps
+    splits = [int(n * r) for r in opts.step_rate_list]
+    computed = int(sampler.pipeline.compute_schedule(opts).sum())
+    pinned = []
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+
+    def on_step(i, lat):
+        timer(i, lat)
+        stage = sum(i >= s for s in splits[:-1])
+        pinned.append(torch.equal(lat[:, :1], img_lats[stage]))
+
+    with _Launches() as run:
+        lat = sampler.predict_i2v(img_lats, txt, mask, txt2, opts,
+                                  on_step=on_step)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"   host skip schedule: {computed} of {n} steps computed; "
+          f"per-step seconds: {[round(x, 4) for x in timer.step_s]}")
+    print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}")
+    _check_latents(lat, expect_shape)
+    if opts.i2v_condition_type == "token_replace":
+        if not all(pinned) or not torch.equal(lat[:, :1], img_lats[-1]):
+            fail(f"token_replace: frame 0 differs from the conditioning "
+                 f"latent after steps {[i for i, p in enumerate(pinned) if not p]}")
+        print(f"   frame 0 equals the conditioning latent after all {n} "
+              f"steps")
+    blocks = cfg.double_blocks + cfg.single_blocks
+    expect = {"block_sparse_attn": computed * blocks,
+              "block_sparse_attn_members": 0, "dense_attn": 0, **NO_PROBES}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({computed} computed "
+             f"steps x {blocks} blocks)")
+    return {"launches": run.counts, "step_s": timer.step_s,
+            "peak_gib": peak, "computed": computed}
+
+
+def phase_hy_i2v_main_path():
+    """Phases 4c (token_replace, full depth) and 4d (latent_concat, cut to
+    2 + 2 blocks)."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_i2v_options
+    from jenga_tpu_torch.models.hyvideo import hy_i2v_config
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler
+    runs = {}
+    for cond, depth, steps in (("token_replace", None, 8),
+                               ("latent_concat", 2, 4)):
+        letter = "c" if cond == "token_replace" else "d"
+        t0 = phase(f"4{letter}. main path: HunyuanVideo-I2V {cond}, full "
+                   f"width, {'full depth' if depth is None else '2 + 2 blocks'}")
+        cfg = hy_i2v_config(cond)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, double_blocks=depth,
+                                      single_blocks=depth)
+        ti = time.perf_counter()
+        sampler = HunyuanVideoSampler(cfg, device="cuda", seed=0, i2v=True)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        _perturb(sampler.model, gen)
+        torch.cuda.synchronize()
+        print(f"   model: in_channels {cfg.in_channels}, "
+              f"{cfg.double_blocks} + {cfg.single_blocks} blocks, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+              f"{time.perf_counter() - ti:.3f} s")
+        # the options `hyvideo-i2v --preset base` builds
+        opts = get_hy_i2v_options("base", size=(1280, 720), video_length=33,
+                                  num_inference_steps=steps,
+                                  i2v_condition_type=cond)
+        img_lats = [torch.randn((16, 1, lat[1], lat[2]), generator=gen,
+                                device="cuda")
+                    for lat, _ in sampler.pipeline._stage_shapes(opts)]
+        txt, mask, txt2 = _text(gen, cfg, n_pad=40)
+        runs[cond] = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
+                                 (16, 9, 90, 160))
+        del sampler, img_lats
+        _free()
+        done(t0)
+    return runs
+
+
+def phase_wan_i2v_main_path():
+    """Phase 4e: Wan2.1-I2V-14B at full width and depth."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_wan_i2v_options
+    from jenga_tpu_torch.models.wan import CLIP_DIM
+    from jenga_tpu_torch.runtime import WanSampler
+    t0 = phase("4e. main path: Wan2.1-I2V-14B, full width+depth, 832x480 "
+               "area")
+    ti = time.perf_counter()
+    sampler = WanSampler.from_task("i2v-14B", device="cuda", seed=0)
+    cfg = sampler.cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    _perturb_wan(sampler.model, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sampler.model.parameters())
+    print(f"   model: {n_params} params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - ti:.3f} s; model_id "
+          f"{sampler.pipeline.model_id}")
+    # the wan-i2v options at max_area 832*480 (shift 3.0, q_group 8); the
+    # smallest step count from 6, with the ret-steps polynomial first,
+    # whose host plan holds a dense, a carved and a skipped step (under
+    # random weights the time embedding changes by ~1 relative per step,
+    # where the wan-i2v-720p ret-steps polynomial is ~1e4: no skip)
+    chosen = None
+    for ret in (True, False):
+        for steps in range(6, 13):
+            opts = get_wan_i2v_options(832 * 480, frame_num=81,
+                                       sampling_steps=steps,
+                                       use_ret_steps=ret)
+            kinds = sampler.pipeline.step_plan(opts)
+            if {"dense", "carved", "skip"} <= set(kinds):
+                chosen = opts, kinds
+                break
+        if chosen:
+            break
+    if chosen is None:
+        fail("no step count in 6..12 gives dense, carved and skipped I2V "
+             "steps")
+    opts, kinds = chosen
+    print(f"   chose sampling_steps={opts.sampling_steps}, use_ret_steps="
+          f"{opts.use_ret_steps} (shift {opts.shift}): schedule {kinds}")
+    lat_h, lat_w, frames = 60, 104, 81      # 21 x 60 x 104 latents
+    img_lat = torch.randn((16, 21, lat_h, lat_w), generator=gen,
+                          device="cuda")
+    clip = torch.randn((257, CLIP_DIM), generator=gen, device="cuda")
+    ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+    with _recorded_sparse_calls(calls), _Launches() as run:
+        lat = sampler.generate_i2v(img_lat, clip, ctx, null, frames, lat_h,
+                                   lat_w, opts, on_step=timer)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    density = (torch.stack([c[3] for c in calls]).mean().item()
+               if calls else None)
+    print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]}")
+    print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}; "
+          f"block-sparse list density (mean over launches): {density}")
+    _check_latents(lat, (16, 21, lat_h, lat_w))
+    n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
+    layers = cfg.num_layers
+    # D per computed step: the text and the image cross-attention of
+    # every layer; a dense step adds its self-attention
+    expect = {"block_sparse_attn": layers * n_carved,
+              "block_sparse_attn_members": 0,
+              "dense_attn": layers * n_dense
+              + 2 * layers * (n_dense + n_carved), **NO_PROBES}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
+             f"{n_carved} carved steps x {layers} layers)")
+    del sampler, lat
+    _free()
+    done(t0)
+    return {"launches": run.counts, "step_s": timer.step_s,
+            "peak_gib": peak, "schedule": kinds, "density": density}
+
+
 def _kernel_vs_plain(fwd):
     """fwd() with the kernels, then with both dispatch points patched to
     the plain versions; the relative error of the velocity."""
@@ -857,9 +1084,10 @@ def _kernel_vs_plain(fwd):
 def phase_end_to_end():
     import torch
     from jenga_tpu_torch.models.hyvideo import (HUNYUAN_VIDEO_T2V,
-                                                HYVideoDiT, init_hyvideo_,
-                                                make_hy_carve)
-    from jenga_tpu_torch.models.wan import (WAN_T2V_1_3B, WanDiT, init_wan_,
+                                                HYVideoDiT, hy_i2v_config,
+                                                init_hyvideo_, make_hy_carve)
+    from jenga_tpu_torch.models.wan import (CLIP_DIM, WAN_I2V_14B,
+                                            WAN_T2V_1_3B, WanDiT, init_wan_,
                                             make_wan_carve)
     t0 = phase("5. end to end: kernels vs plain attention")
     rel = {}
@@ -887,6 +1115,16 @@ def phase_end_to_end():
         rel[name] = _kernel_vs_plain(
             lambda: model(x, t, txt[None], mask[None], txt2[None], c))
     del model
+    # HunyuanVideo-I2V token_replace, cut to 1 + 1 blocks, carved and dense
+    cfg = dataclasses.replace(hy_i2v_config("token_replace"),
+                              double_blocks=1, single_blocks=1)
+    model = init_hyvideo_(HYVideoDiT(cfg, device="cuda"), gen)
+    _perturb(model, gen)
+    x = torch.randn((1, 16, 9, 32, 64), generator=gen, device="cuda")
+    for name, c in (("hy_i2v_tr_carved", carve), ("hy_i2v_tr_dense", None)):
+        rel[name] = _kernel_vs_plain(
+            lambda: model(x, t, txt[None], mask[None], txt2[None], c))
+    del model
 
     cfg = dataclasses.replace(WAN_T2V_1_3B, num_layers=2)
     model = init_wan_(WanDiT(cfg, device="cuda"), gen)
@@ -906,6 +1144,22 @@ def phase_end_to_end():
                        device="cuda")
     rel["wan_stage0_rowsel"] = _kernel_vs_plain(
         lambda: model(x, t, ctx, carve=c))
+    del model
+    # Wan2.1-I2V-14B cut to 2 layers at 832x480x81f: y, 257 CLIP tokens and
+    # the image cross-attention; carved and the dense fallback
+    cfg = dataclasses.replace(WAN_I2V_14B, num_layers=2)
+    model = init_wan_(WanDiT(cfg, device="cuda"), gen)
+    _perturb_wan(model, gen)
+    carve = make_wan_carve(cfg, WAN_GRID, 0.75, 0.9, q_rows=8,
+                           joint_sel=True, device="cuda")
+    x = torch.randn((1, 16, 21, 60, 104), generator=gen, device="cuda")
+    y = torch.randn((1, 20, 21, 60, 104), generator=gen, device="cuda")
+    clip = torch.randn((1, 257, CLIP_DIM), generator=gen, device="cuda")
+    for name, c in (("wan_i2v_carved", carve),
+                    ("wan_i2v_dense", dataclasses.replace(carve,
+                                                          sa_drop_rate=0.0))):
+        rel[name] = _kernel_vs_plain(
+            lambda: model(x, t, ctx, carve=c, clip_fea=clip, y=y))
     del model
     torch.cuda.empty_cache()
     for name, r in rel.items():
@@ -1060,7 +1314,9 @@ print(json.dumps({"block_sparse_attn": block_sparse_attention.launches,
                   "dense_attn": dense_attention.launches}))
 """
 CLI_TINY = (("hyvideo-t2v", ("block_sparse_attn",)),
-            ("wan-t2v", ("block_sparse_attn", "dense_attn")))
+            ("wan-t2v", ("block_sparse_attn", "dense_attn")),
+            ("hyvideo-i2v", ("block_sparse_attn",)),
+            ("wan-i2v", ("block_sparse_attn", "dense_attn")))
 
 
 def phase_cli_tiny():
@@ -1104,9 +1360,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     phase_toolchain()
-    recs, main_rec, member, dense = phase_kernel_cases()
+    recs, main_rec, member, dense, extra = phase_kernel_cases()
     hy, hy_turbo = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
+    hy_i2v = phase_hy_i2v_main_path()
+    wan_i2v = phase_wan_i2v_main_path()
     rel = phase_end_to_end()
     probes = phase_probes()
     phase_cli_tiny()
@@ -1117,7 +1375,10 @@ def main():
     runs = {"hyvideo_t2v_base": hy["launches"],
             "hyvideo_t2v_turbo_rowsel": hy_turbo["launches"],
             "wan_t2v_1.3b_base": wan["launches"],
-            "wan_t2v_1.3b_turbo": wan_turbo["launches"]}
+            "wan_t2v_1.3b_turbo": wan_turbo["launches"],
+            "hyvideo_i2v_token_replace": hy_i2v["token_replace"]["launches"],
+            "hyvideo_i2v_latent_concat": hy_i2v["latent_concat"]["launches"],
+            "wan_i2v_14b": wan_i2v["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -1145,8 +1406,13 @@ def main():
         "design": DESIGN,
         "k2_ms": k2_main["ms"],
         "k2_library_ms": k2_main["library_ms"],
+        "wan14b_ms": extra["k1_wan14b"]["ms"],
+        "wan14b_plain_ms": extra["k1_wan14b"]["plain_ms"],
+        "wan14b_bound_ms": extra["k1_wan14b"]["bound_ms"],
+        "wan14b_library_ms": extra["k1_wan14b"]["library_ms"],
         "e2e_rel_err": max(rel["hy_carved"], rel["wan_carved"],
-                           rel["hy_turbo_stage0_joint"]),
+                           rel["hy_turbo_stage0_joint"],
+                           rel["hy_i2v_tr_carved"], rel["wan_i2v_carved"]),
     }, {
         "name": "block_sparse_attn_members",
         "route": "cuda",
@@ -1187,7 +1453,18 @@ def main():
         "cross_plain_ms": wan_cross["plain_ms"],
         "cross_bound_ms": wan_cross["bound_ms"],
         "cross_library_ms": wan_cross["library_ms"],
-        "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"]),
+        "image_cross_ms": extra["e_wan14b_image_cross"]["ms"],
+        "image_cross_plain_ms": extra["e_wan14b_image_cross"]["plain_ms"],
+        "image_cross_bound_ms": extra["e_wan14b_image_cross"]["bound_ms"],
+        "image_cross_bound_by": extra["e_wan14b_image_cross"]["bound_by"],
+        "image_cross_library_ms":
+            extra["e_wan14b_image_cross"]["library_ms"],
+        "cross14b_ms": extra["f_wan14b_text_cross"]["ms"],
+        "cross14b_plain_ms": extra["f_wan14b_text_cross"]["plain_ms"],
+        "cross14b_bound_ms": extra["f_wan14b_text_cross"]["bound_ms"],
+        "cross14b_library_ms": extra["f_wan14b_text_cross"]["library_ms"],
+        "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"],
+                           rel["hy_i2v_tr_dense"], rel["wan_i2v_dense"]),
     }] + _probe_entries(probes, runs)}
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")

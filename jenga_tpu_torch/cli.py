@@ -1,5 +1,6 @@
-"""Command-line entry point of the port (the ``hyvideo-t2v`` and
-``wan-t2v`` subcommands of ``jenga_tpu.cli``, with the same flag names).
+"""Command-line entry point of the port (the ``hyvideo-t2v``,
+``hyvideo-i2v``, ``wan-t2v`` and ``wan-i2v`` subcommands of
+``jenga_tpu.cli``, with the same flag names).
 
 Usage:
   python -m jenga_tpu_torch.cli hyvideo-t2v --preset base --latents-only \
@@ -7,17 +8,25 @@ Usage:
       --save-path out.npy
   python -m jenga_tpu_torch.cli hyvideo-t2v --preset turbo --q-group 8 \
       --no-joint-sel --latents-only --video-length 33 --infer-steps 8
-  python -m jenga_tpu_torch.cli wan-t2v --preset 1.3b-turbo --latents-only \
+  python -m jenga_tpu_torch.cli hyvideo-i2v --i2v-condition-type \
+      latent_concat --latents-only --video-length 33 --infer-steps 8
+  python -m jenga_tpu_torch.cli wan-t2v --preset 14b-base --latents-only \
       --save-path out.npy
+  python -m jenga_tpu_torch.cli wan-i2v --max-area 399360 --latents-only
 
 HunyuanVideo presets: base, turbo, flash, 3stage, accvideo (the last four
-switch resolution between stages, ProRes); Wan presets: 1.3b-base and
-1.3b-turbo (the 14B presets are refused).
+switch resolution between stages, ProRes); ``hyvideo-i2v`` takes base.
+Wan presets: 1.3b-base, 1.3b-turbo (Wan2.1-T2V-1.3B), 14b-base and
+14b-turbo (Wan2.1-T2V-14B); ``wan-i2v`` runs Wan2.1-I2V-14B.
 
-The port has no checkpoints, text encoders or VAE yet: the DiT runs from
-a seeded random init on the device, the text states are zero embeddings
-(256 tokens for HunyuanVideo; 64 for Wan, padded to its ``text_len``),
-and the output is the final latents (.npy).
+The port has no checkpoints, text encoders, image encoders or VAE yet:
+the DiT runs from a seeded random init on the device, the text states are
+zero embeddings (256 tokens for HunyuanVideo; 64 for Wan, padded to its
+``text_len``), the I2V conditioning is zeros (as in the JAX CLI's smoke
+mode), and the output is the final latents (.npy). For ``wan-i2v`` the
+would-be image is ``--video-size`` (default 832x480), and the latent size
+comes from its aspect under ``--max-area``; with ``--tiny`` and no
+``--video-size`` the latent is 16x16 over 9 frames, the JAX smoke shape.
 """
 
 from __future__ import annotations
@@ -68,6 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
     h.add_argument("--preset", default="base",
                    choices=["base", "turbo", "flash", "3stage", "accvideo"])
     _common(h)
+    i = sub.add_parser("hyvideo-i2v", help="HunyuanVideo image-to-video")
+    i.add_argument("--preset", default="base", choices=["base"])
+    i.add_argument("--i2v-condition-type", default="token_replace",
+                   choices=["token_replace", "latent_concat"])
+    i.add_argument("--i2v-stability", action="store_true", default=True,
+                   help="blend the initial noise with the image latent "
+                        "(always on, as in the JAX CLI)")
+    i.add_argument("--i2v-resolution", default="720p",
+                   choices=["720p", "540p", "360p"],
+                   help="aspect-ratio bucket base for a conditioning image "
+                        "when --video-size is not given (takes effect with "
+                        "image input, which waits for the VAE)")
+    _common(i)
     w = sub.add_parser("wan-t2v", help="Wan2.1 text-to-video")
     w.add_argument("--preset", default="1.3b-base",
                    choices=["1.3b-base", "1.3b-turbo", "14b-base",
@@ -75,6 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
     _common(w)
     w.add_argument("--sa-drop-rates", type=float, nargs="+", default=None)
     w.add_argument("--teacache-thresh", type=float, default=None)
+    wi = sub.add_parser("wan-i2v", help="Wan2.1 image-to-video (14B)")
+    wi.add_argument("--max-area", type=int, default=720 * 1280,
+                    help="pixel budget of the video; <= 832*480 also sets "
+                         "the flow shift 3.0")
+    _common(wi)
     return ap
 
 
@@ -94,12 +121,15 @@ def _tiny_config(device: str):
     return cfg
 
 
-def _tiny_wan_config(device: str):
+def _tiny_wan_config(device: str, i2v: bool = False):
     """The tiny Wan model: f32 with head dim 64 on the CPU, bf16 with two
-    heads of 128 on the card (see ``_tiny_config``)."""
+    heads of 128 on the card (see ``_tiny_config``); ``i2v`` takes the 36
+    input channels and the image cross-attention."""
     from .models.wan import WanConfig
     cfg = WanConfig(dim=128, ffn_dim=256, freq_dim=32, num_heads=2,
-                    num_layers=2, text_dim=64, text_len=16, dtype="float32")
+                    num_layers=2, text_dim=64, text_len=16, dtype="float32",
+                    model_type="i2v" if i2v else "t2v",
+                    in_dim=36 if i2v else 16)
     if device == "cuda":
         cfg = dataclasses.replace(cfg, dim=256, dtype="bfloat16")
     return cfg
@@ -114,12 +144,7 @@ def _save_latents(args, out, t0):
     print(f"saved latents to {path}")
 
 
-def run_hyvideo_t2v(args):
-    import numpy as np
-    from .configs.presets import get_hy_preset
-    from .models.hyvideo import HUNYUAN_VIDEO_T2V
-    from .runtime import HunyuanVideoSampler
-
+def _hy_overrides(args) -> dict:
     over = {"seed": args.seed}
     if args.infer_steps:
         over["num_inference_steps"] = args.infer_steps
@@ -131,22 +156,59 @@ def run_hyvideo_t2v(args):
         over["q_group"] = args.q_group
     if args.no_joint_sel:
         over["joint_sel"] = False
-    opts = get_hy_preset(args.preset, **over)
+    return over
 
+
+def _zero_hy_text(cfg, n):
+    import numpy as np
+    return (np.zeros((n, cfg.text_states_dim), np.float32),
+            np.ones((n,), np.int32),
+            np.zeros((cfg.text_states_dim_2,), np.float32))
+
+
+def run_hyvideo_t2v(args):
+    from .configs.presets import get_hy_preset
+    from .models.hyvideo import HUNYUAN_VIDEO_T2V
+    from .runtime import HunyuanVideoSampler
+
+    opts = get_hy_preset(args.preset, **_hy_overrides(args))
     cfg = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
     sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed)
-    n = sampler.TEXT_LEN
-    txt = np.zeros((n, cfg.text_states_dim), np.float32)
-    mask = np.ones((n,), np.int32)
-    txt2 = np.zeros((cfg.text_states_dim_2,), np.float32)
+    text = _zero_hy_text(cfg, sampler.TEXT_LEN)
     t0 = time.time()
-    _save_latents(args, sampler.predict(txt, mask, txt2, opts), t0)
+    _save_latents(args, sampler.predict(*text, opts), t0)
+
+
+def hy_i2v_options(args):
+    """``hyvideo-i2v``'s options, by the JAX CLI's rule (the T2V preset
+    merged over the I2V defaults, then the flags)."""
+    from .configs.presets import get_hy_i2v_options
+    return get_hy_i2v_options(
+        args.preset, i2v_condition_type=args.i2v_condition_type,
+        i2v_stability=args.i2v_stability, **_hy_overrides(args))
+
+
+def run_hyvideo_i2v(args):
+    import numpy as np
+    from .models.hyvideo import HUNYUAN_VIDEO_T2V, hy_i2v_config
+    from .runtime import HunyuanVideoSampler
+
+    opts = hy_i2v_options(args)
+    base = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
+    cfg = hy_i2v_config(opts.i2v_condition_type, base)
+    sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed,
+                                  i2v=True)
+    # no image encoder yet: zero conditioning latents, one per stage
+    image_latents = [np.zeros((16, 1, lat[1], lat[2]), np.float32)
+                     for lat, _ in sampler.pipeline._stage_shapes(opts)]
+    text = _zero_hy_text(cfg, sampler.TEXT_LEN)
+    t0 = time.time()
+    _save_latents(args, sampler.predict_i2v(image_latents, *text, opts), t0)
 
 
 def run_wan_t2v(args):
     import numpy as np
     from .configs.presets import get_wan_preset
-    from .models.wan import WAN_T2V_1_3B
     from .runtime import WanSampler
 
     over = {"seed": args.seed}
@@ -164,24 +226,74 @@ def run_wan_t2v(args):
         over["joint_sel"] = False
     if args.teacache_thresh is not None:
         over["teacache_thresh"] = args.teacache_thresh
-    if args.preset.startswith("14b"):
-        raise SystemExit("Wan 14B runs are not ported yet (1.3b presets "
-                         "only)")
     opts = get_wan_preset(args.preset, **over)
 
-    cfg = _tiny_wan_config(args.device) if args.tiny else WAN_T2V_1_3B
-    sampler = WanSampler(cfg, device=args.device, seed=args.seed)
-    ctx = np.zeros((64, cfg.text_dim), np.float32)
+    if args.tiny:
+        sampler = WanSampler(_tiny_wan_config(args.device),
+                             device=args.device, seed=args.seed)
+    else:
+        task = "t2v-14B" if args.preset.startswith("14b") else "t2v-1.3B"
+        sampler = WanSampler.from_task(task, device=args.device,
+                                       seed=args.seed)
+    ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
     t0 = time.time()
     _save_latents(args, sampler.generate(ctx, np.zeros_like(ctx), opts), t0)
 
 
+def wan_i2v_inputs(args):
+    """``wan-i2v``'s options, frame count and latent (h, w), by the JAX
+    CLI's rule: ``--tiny`` without ``--video-size`` takes the JAX smoke
+    shape (16x16 over ``--video-length`` or 9 frames); otherwise the latent
+    size is ``i2v_latent_size`` of ``--video-size`` (default the options'
+    832x480) under ``--max-area``."""
+    from .configs.presets import get_wan_i2v_options
+    from .pipelines.wan_i2v import i2v_latent_size
+
+    over = {"seed": args.seed}
+    if args.q_group is not None:
+        over["q_group"] = args.q_group
+    if args.no_joint_sel:
+        over["joint_sel"] = False
+    if args.infer_steps:
+        over["sampling_steps"] = args.infer_steps
+    if args.video_length:
+        over["frame_num"] = args.video_length
+    if args.tiny:
+        over["frame_num"] = args.video_length or 9
+    opts = get_wan_i2v_options(args.max_area, **over)
+    if args.tiny and not args.video_size:
+        return opts, opts.frame_num, 16, 16
+    w, h = args.video_size or opts.size
+    return (opts, opts.frame_num, *i2v_latent_size(h, w, args.max_area))
+
+
+def run_wan_i2v(args):
+    import numpy as np
+    from .models.wan import CLIP_DIM
+    from .runtime import WanSampler
+
+    opts, frame_num, lat_h, lat_w = wan_i2v_inputs(args)
+    if args.tiny:
+        sampler = WanSampler(_tiny_wan_config(args.device, i2v=True),
+                             device=args.device, seed=args.seed)
+    else:
+        sampler = WanSampler.from_task("i2v-14B", device=args.device,
+                                       seed=args.seed)
+    # no VAE or CLIP tower yet: zero image latent and CLIP tokens
+    t_lat = (frame_num - 1) // 4 + 1
+    img_lat = np.zeros((16, t_lat, lat_h, lat_w), np.float32)
+    clip_fea = np.zeros((257, CLIP_DIM), np.float32)
+    ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
+    t0 = time.time()
+    _save_latents(args, sampler.generate_i2v(
+        img_lat, clip_fea, ctx, np.zeros_like(ctx), frame_num, lat_h, lat_w,
+        opts), t0)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cmd == "hyvideo-t2v":
-        run_hyvideo_t2v(args)
-    elif args.cmd == "wan-t2v":
-        run_wan_t2v(args)
+    {"hyvideo-t2v": run_hyvideo_t2v, "hyvideo-i2v": run_hyvideo_i2v,
+     "wan-t2v": run_wan_t2v, "wan-i2v": run_wan_i2v}[args.cmd](args)
 
 
 if __name__ == "__main__":

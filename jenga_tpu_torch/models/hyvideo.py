@@ -13,9 +13,15 @@ Parameter names follow the JAX pytree (``double_blocks.3.img_qkv.w``), so
 ``convert.hyvideo_params_from_jax`` gives a state dict for
 ``load_state_dict``. Linear weights are torch-style ``[out, in]``.
 
+Image-to-video: with ``i2v_condition_type="token_replace"`` the first
+frame's tokens take the modulation of timestep 0 (shift, scale and gate,
+in every block), through a mask over the curve-ordered image tokens; the
+latent_concat conditioning needs only the 33 input channels
+(``hy_i2v_config``).
+
 Not ported (each raises ``NotImplementedError`` when asked for): the
-token-replace (I2V) branches, the sequence-parallel mesh, ``sel_mask``
-selection replay, and ``scan``/``remat``.
+sequence-parallel mesh, ``sel_mask`` selection replay, and
+``scan``/``remat``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from ..sparse.planner import build_block_mask
 from . import layers as L
 
 __all__ = ["HYVideoConfig", "HYCarve", "HYVideoDiT", "make_hy_carve",
-           "hy_rope_tables", "HUNYUAN_VIDEO_T2V", "init_hyvideo_"]
+           "hy_rope_tables", "hy_i2v_config", "HUNYUAN_VIDEO_T2V",
+           "init_hyvideo_"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -74,6 +81,24 @@ class HYVideoConfig:
 
 
 HUNYUAN_VIDEO_T2V = HYVideoConfig()
+
+
+def hy_i2v_config(condition_type: str,
+                  base: HYVideoConfig = HUNYUAN_VIDEO_T2V) -> HYVideoConfig:
+    """The I2V model for a condition type: ``token_replace`` takes the 16
+    latent channels and the t=0 modulation of the first frame;
+    ``latent_concat`` takes 33 channels (latents, image latent, first-frame
+    mask) and no token replacement. The JAX package's
+    ``HUNYUAN_VIDEO_I2V`` pairs 33 channels with token_replace, which its
+    own pipeline cannot run (it feeds 16 channels under token_replace)."""
+    if condition_type == "token_replace":
+        return dataclasses.replace(base, in_channels=16,
+                                   i2v_condition_type="token_replace")
+    if condition_type == "latent_concat":
+        return dataclasses.replace(base, in_channels=33,
+                                   i2v_condition_type=None)
+    raise ValueError(f"i2v condition type {condition_type!r} is not "
+                     f"token_replace or latent_concat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +234,32 @@ def _gated(x, y, gate):
     return (x.float() + y.float() * gate).to(x.dtype)
 
 
+def _mod_tr(x, shift, scale, tr, which):
+    """Modulate; under token replacement the first-frame tokens (``tr``'s
+    mask) take the t=0 (shift, scale) pair ``tr[which]``."""
+    xn = L.layer_norm(x)
+    y = L.modulate(xn, shift=shift, scale=scale)
+    if tr is None:
+        return y
+    tr_shift, tr_scale = tr[which]
+    y_tr = L.modulate(xn, shift=tr_shift, scale=tr_scale)
+    return torch.where(tr["mask"][None, :, None], y_tr, y)
+
+
+def _gate_tr(x, y, gate, tr, which):
+    """Gated residual add; under token replacement the first-frame tokens
+    take the t=0 gate ``tr[which]``."""
+    g = gate.float()
+    if tr is not None:
+        g = torch.where(tr["mask"][None, :, None], tr[which].float(), g)
+    return _gated(x, y, g)
+
+
+def _tr_chunks(mod: L.Affine, tr_vec, n: int):
+    """The t=0 modulation of one block, as n chunks [B, 1, d] (f32)."""
+    return mod(L.silu(tr_vec)).float()[:, None].chunk(n, dim=-1)
+
+
 def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen):
     """Joint img+txt attention: sparse video rows and dense text rows in
     one kernel launch; dense fallback when there is no carving or the
@@ -265,14 +316,23 @@ class DoubleBlock(nn.Module):
         self.img_mlp = L.MLP(d, mh, d, dt, device)
         self.txt_mlp = L.MLP(d, mh, d, dt, device)
 
-    def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen):
+    def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen,
+                tr=None):
+        """``tr``: None, or the token replacement's ``vec`` (the t=0
+        modulation vector) and ``mask_img`` (first-frame image tokens)."""
         b, si, d = img.shape
         st = txt.shape[1]
         n, hd = self.cfg.heads_num, self.cfg.head_dim
         im = self.img_mod(L.silu(vec)).float()[:, None].chunk(6, dim=-1)
         tm = self.txt_mod(L.silu(vec)).float()[:, None].chunk(6, dim=-1)
+        tr_img = None
+        if tr is not None:
+            trm = _tr_chunks(self.img_mod, tr["vec"], 6)
+            tr_img = {"mask": tr["mask_img"], "mod1": (trm[0], trm[1]),
+                      "gate1": trm[2], "mod2": (trm[3], trm[4]),
+                      "gate2": trm[5]}
 
-        img_mod = L.modulate(L.layer_norm(img), shift=im[0], scale=im[1])
+        img_mod = _mod_tr(img, im[0], im[1], tr_img, "mod1")
         img_qkv = self.img_qkv(img_mod).reshape(b, si, 3, n, hd)
         img_q = L.rms_norm(img_qkv[:, :, 0], self.img_q_norm)
         img_k = L.rms_norm(img_qkv[:, :, 1], self.img_k_norm)
@@ -290,10 +350,10 @@ class DoubleBlock(nn.Module):
         attn = _joint_attention(q, k, v, carve, si, seqlen)
         img_attn, txt_attn = attn[:, :si], attn[:, si:]
 
-        img = _gated(img, self.img_proj(img_attn), im[2])
-        y = L.modulate(L.layer_norm(img), shift=im[3], scale=im[4])
+        img = _gate_tr(img, self.img_proj(img_attn), im[2], tr_img, "gate1")
+        y = _mod_tr(img, im[3], im[4], tr_img, "mod2")
         y = self.img_mlp.fc2(L.gelu_tanh(self.img_mlp.fc1(y)))
-        img = _gated(img, y, im[5])
+        img = _gate_tr(img, y, im[5], tr_img, "gate2")
 
         txt = _gated(txt, self.txt_proj(txt_attn), tm[2])
         y = L.modulate(L.layer_norm(txt), shift=tm[3], scale=tm[4])
@@ -316,12 +376,20 @@ class SingleBlock(nn.Module):
         self.q_norm = L.param((hd,), torch.float32, device)
         self.k_norm = L.param((hd,), torch.float32, device)
 
-    def forward(self, x, vec, carve, rope_cos, rope_sin, txt_len, seqlen):
+    def forward(self, x, vec, carve, rope_cos, rope_sin, txt_len, seqlen,
+                tr=None):
+        """``tr``: None, or the token replacement's ``vec`` and
+        ``mask_full`` (first-frame tokens of the joint sequence)."""
         b, s, d = x.shape
         n, hd = self.cfg.heads_num, self.cfg.head_dim
         shift, scale, gate = self.modulation(L.silu(vec)).float()[:, None] \
             .chunk(3, dim=-1)
-        x_mod = L.modulate(L.layer_norm(x), shift=shift, scale=scale)
+        tr_full = None
+        if tr is not None:
+            trm = _tr_chunks(self.modulation, tr["vec"], 3)
+            tr_full = {"mask": tr["mask_full"], "mod": (trm[0], trm[1]),
+                       "gate": trm[2]}
+        x_mod = _mod_tr(x, shift, scale, tr_full, "mod")
         y = self.linear1(x_mod)
         qkv, mlp = y[..., :3 * d], y[..., 3 * d:]
         qkv = qkv.reshape(b, s, 3, n, hd)
@@ -335,7 +403,7 @@ class SingleBlock(nn.Module):
                        k[:, img_len:]], dim=1)
         attn = _joint_attention(q, k, v, carve, img_len, seqlen)
         out = self.linear2(torch.cat([attn, L.gelu_tanh(mlp)], dim=-1))
-        return _gated(x, out, gate)
+        return _gate_tr(x, out, gate, tr_full, "gate")
 
 
 class FinalLayer(nn.Module):
@@ -354,9 +422,11 @@ class HYVideoDiT(nn.Module):
 
     def __init__(self, cfg: HYVideoConfig, device="cpu"):
         super().__init__()
-        if cfg.i2v_condition_type is not None:
-            raise NotImplementedError("the token-replace (I2V) branches are "
-                                      "not ported")
+        if cfg.i2v_condition_type not in (None, "token_replace"):
+            raise ValueError(f"i2v_condition_type "
+                             f"{cfg.i2v_condition_type!r}: the model knows "
+                             f"only token_replace (None for T2V and "
+                             f"latent_concat)")
         d, dt, f32 = cfg.hidden_size, cfg.torch_dtype, torch.float32
         self.cfg = cfg
         patch_in = cfg.in_channels * math.prod(cfg.patch_size)
@@ -391,6 +461,22 @@ class HYVideoDiT(nn.Module):
             vec = vec + _timestep_embedder(self.guidance_in, guidance)
         vec = vec.float()
         txt = self.txt_in(text_states, t, text_mask)
+        tr = None
+        if cfg.i2v_condition_type == "token_replace":
+            # the t=0 embedding plus the vector embedding (no guidance),
+            # for the first frame's tokens: the mask follows the curve
+            # reorder, and is False over the text
+            tr_vec = _timestep_embedder(self.time_in, torch.zeros_like(t))
+            tr_vec = tr_vec + _mlp_embedder(self.vector_in,
+                                            text_states_2.float())
+            mask_img = torch.arange(img.shape[1], device=x.device) \
+                < grid[1] * grid[2]
+            if carve is not None:
+                mask_img = mask_img[carve.curve_order]
+            mask_full = torch.cat([mask_img, torch.zeros(
+                txt.shape[1], dtype=torch.bool, device=x.device)])
+            tr = dict(vec=tr_vec.float(), mask_img=mask_img,
+                      mask_full=mask_full)
         if carve is not None:
             img = img[:, carve.curve_order]
             rope_cos, rope_sin = carve.rope_cos, carve.rope_sin
@@ -404,7 +490,8 @@ class HYVideoDiT(nn.Module):
             seqlens = torch.full((b,), img.shape[1] + txt.shape[1],
                                  device=x.device)
         aux = dict(vec=vec, grid=grid, rope_cos=rope_cos, rope_sin=rope_sin,
-                   txt_len=txt.shape[1], seqlens=seqlens.to(torch.int32))
+                   txt_len=txt.shape[1], seqlens=seqlens.to(torch.int32),
+                   tr=tr)
         return img, txt, aux
 
     def trunk(self, img, txt, aux, carve: HYCarve | None = None,
@@ -413,14 +500,15 @@ class HYVideoDiT(nn.Module):
         if remat or scan:
             raise NotImplementedError("remat/scan are JAX compile devices "
                                       "and are not ported")
-        vec, seqlen = aux["vec"], aux["seqlens"]
+        vec, seqlen, tr = aux["vec"], aux["seqlens"], aux["tr"]
         rope_cos, rope_sin = aux["rope_cos"], aux["rope_sin"]
         for blk in self.double_blocks:
-            img, txt = blk(img, txt, vec, carve, rope_cos, rope_sin, seqlen)
+            img, txt = blk(img, txt, vec, carve, rope_cos, rope_sin, seqlen,
+                           tr)
         x = torch.cat([img, txt], dim=1)
         for blk in self.single_blocks:
             x = blk(x, vec, carve, rope_cos, rope_sin, aux["txt_len"],
-                    seqlen)
+                    seqlen, tr)
         return x[:, :img.shape[1]]
 
     def head(self, img, aux, carve: HYCarve | None = None):

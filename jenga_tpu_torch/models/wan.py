@@ -19,9 +19,16 @@ Parameter names follow the JAX pytree (``blocks.3.self_attn.q.w``), except
 that the tree's ``head`` is the module ``head_layer`` (``head`` is the
 method); ``convert.wan_params_from_jax`` gives the state dict.
 
-Not ported (each raises ``NotImplementedError``): the I2V inputs
-(``clip_fea``, ``y``, image tokens), the sequence-parallel ``mesh``,
-``sel_mask`` selection replay, and ``remat``.
+Image-to-video (``model_type="i2v"``, ``WAN_I2V_14B``): the conditioning
+``y`` (a 4-channel first-frame mask and the image latent) joins the
+latents on the channel axis (``in_dim`` 36); the CLIP image tokens go
+through ``img_emb`` (LayerNorm, fc1, tanh GELU, fc2, LayerNorm) and sit
+ahead of the text context, and each block's cross-attention adds a second
+dense attention over those ``image_tokens`` keys (``k_img``, ``v_img``,
+``norm_k_img``) to the one over the text keys.
+
+Not ported (each raises ``NotImplementedError``): the sequence-parallel
+``mesh``, ``sel_mask`` selection replay, and ``remat``.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from ..sparse.planner import build_block_mask
 from . import layers as L
 
 __all__ = ["WanConfig", "WanCarve", "WanDiT", "make_wan_carve",
-           "wan_rope_tables", "init_wan_", "WAN_T2V_1_3B", "WAN_T2V_14B"]
+           "wan_rope_tables", "init_wan_", "WAN_T2V_1_3B", "WAN_T2V_14B",
+           "WAN_I2V_14B", "CLIP_DIM"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -82,6 +90,8 @@ class WanConfig:
 
 WAN_T2V_1_3B = WanConfig(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30)
 WAN_T2V_14B = WanConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
+WAN_I2V_14B = dataclasses.replace(WAN_T2V_14B, model_type="i2v", in_dim=36)
+CLIP_DIM = 1280     # width of the CLIP ViT-H image tokens (clip_fea)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,9 +157,11 @@ def make_wan_carve(cfg: WanConfig, grid, sa_drop_rate: float,
 
 
 class WanAttention(nn.Module):
-    """q/k/v/o projections with full-``dim`` q/k RMS-norm scales."""
+    """q/k/v/o projections with full-``dim`` q/k RMS-norm scales; with
+    ``image`` (I2V cross-attention) also the image keys' ``k_img``,
+    ``v_img`` and ``norm_k_img``."""
 
-    def __init__(self, cfg: WanConfig, device):
+    def __init__(self, cfg: WanConfig, device, image: bool = False):
         super().__init__()
         d, dt = cfg.dim, cfg.torch_dtype
         self.q = L.Affine(d, d, dt, device)
@@ -158,6 +170,29 @@ class WanAttention(nn.Module):
         self.o = L.Affine(d, d, dt, device)
         self.norm_q = L.param((d,), torch.float32, device)
         self.norm_k = L.param((d,), torch.float32, device)
+        if image:
+            self.k_img = L.Affine(d, d, dt, device)
+            self.v_img = L.Affine(d, d, dt, device)
+            self.norm_k_img = L.param((d,), torch.float32, device)
+
+
+class ImageEmbedding(nn.Module):
+    """CLIP image tokens to the model width: LayerNorm, fc1, GELU (tanh),
+    fc2, LayerNorm."""
+
+    def __init__(self, cfg: WanConfig, device):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.norm_in = L.Norm(CLIP_DIM, device)
+        self.fc1 = L.Affine(CLIP_DIM, CLIP_DIM, dt, device)
+        self.fc2 = L.Affine(CLIP_DIM, cfg.dim, dt, device)
+        self.norm_out = L.Norm(cfg.dim, device)
+
+    def forward(self, clip_fea):
+        x = L.layer_norm(clip_fea.float(), self.norm_in.w, self.norm_in.b)
+        # the JAX package's jax.nn.gelu, whose default is the tanh form
+        x = self.fc2(L.gelu_tanh(self.fc1(x.to(self.fc1.w.dtype))))
+        return L.layer_norm(x, self.norm_out.w, self.norm_out.b)
 
 
 def _self_attention(p: WanAttention, x, cfg: WanConfig,
@@ -198,14 +233,25 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
     return p.o(out.reshape(b, s, d))
 
 
-def _cross_attention(p: WanAttention, x, context, cfg: WanConfig):
-    """Dense cross-attention over every key of the padded text context."""
+def _cross_attention(p: WanAttention, x, context, cfg: WanConfig,
+                     image_tokens: int = 0):
+    """Dense cross-attention over every key of the padded text context;
+    the first ``image_tokens`` context tokens (I2V) are the image keys, a
+    second attention through ``k_img``/``v_img`` whose output adds to the
+    text attention's."""
     b, s, d = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
-    k = L.rms_norm(p.k(context), p.norm_k, cfg.eps).reshape(b, -1, n, hd)
-    v = p.v(context).reshape(b, -1, n, hd)
-    return p.o(attention_bshd(q, k, v).reshape(b, s, d))
+    ctx_img, ctx = context[:, :image_tokens], context[:, image_tokens:]
+    k = L.rms_norm(p.k(ctx), p.norm_k, cfg.eps).reshape(b, -1, n, hd)
+    v = p.v(ctx).reshape(b, -1, n, hd)
+    out = attention_bshd(q, k, v)
+    if image_tokens:
+        k_img = L.rms_norm(p.k_img(ctx_img), p.norm_k_img,
+                           cfg.eps).reshape(b, -1, n, hd)
+        v_img = p.v_img(ctx_img).reshape(b, -1, n, hd)
+        out = out + attention_bshd(q, k_img, v_img)
+    return p.o(out.reshape(b, s, d))
 
 
 def _gated(x, y, gate):
@@ -221,12 +267,14 @@ class WanBlock(nn.Module):
         d, dt = cfg.dim, cfg.torch_dtype
         self.cfg = cfg
         self.self_attn = WanAttention(cfg, device)
-        self.cross_attn = WanAttention(cfg, device)
+        self.cross_attn = WanAttention(cfg, device,
+                                       image=cfg.model_type == "i2v")
         self.norm3 = L.Norm(d, device)
         self.ffn = L.MLP(d, cfg.ffn_dim, d, dt, device)
         self.modulation = L.param((6, d), torch.float32, device)
 
-    def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None):
+    def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None,
+                image_tokens: int = 0):
         cfg = self.cfg
         e = self.modulation[None].float() + e6            # [B, 6, d] f32
         e0, e1, e2, e3, e4, e5 = (e[:, i:i + 1] for i in range(6))
@@ -236,7 +284,8 @@ class WanBlock(nn.Module):
         x = _gated(x, y, e2)
         y = L.layer_norm(x, self.norm3.w, self.norm3.b, cfg.eps) \
             if cfg.cross_attn_norm else x
-        x = x + _cross_attention(self.cross_attn, y, context, cfg)
+        x = x + _cross_attention(self.cross_attn, y, context, cfg,
+                                 image_tokens)
         y = L.modulate(L.layer_norm(x, eps=cfg.eps), shift=e3, scale=e4)
         y = self.ffn.fc2(L.gelu_tanh(self.ffn.fc1(y)))
         return _gated(x, y, e5)
@@ -252,14 +301,15 @@ class WanHead(nn.Module):
 
 
 class WanDiT(nn.Module):
-    """The Wan2.1 T2V DiT. Parameters are allocated uninitialised on
-    ``device``: load a converted state dict or call ``init_wan_``."""
+    """The Wan2.1 DiT (T2V, or I2V with ``model_type="i2v"``). Parameters
+    are allocated uninitialised on ``device``: load a converted state dict
+    or call ``init_wan_``."""
 
     def __init__(self, cfg: WanConfig, device="cpu"):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError("Wan I2V (clip_fea, y, k_img/v_img) is "
-                                      "not ported")
+        if cfg.model_type not in ("t2v", "i2v"):
+            raise ValueError(f"model_type {cfg.model_type!r} is not t2v or "
+                             f"i2v")
         d, dt, f32 = cfg.dim, cfg.torch_dtype, torch.float32
         self.cfg = cfg
         self.patch_embedding = L.Affine(
@@ -270,6 +320,8 @@ class WanDiT(nn.Module):
         self.blocks = nn.ModuleList(WanBlock(cfg, device)
                                     for _ in range(cfg.num_layers))
         self.head_layer = WanHead(cfg, device)
+        if cfg.model_type == "i2v":
+            self.img_emb = ImageEmbedding(cfg, device)
 
     @property
     def device(self):
@@ -285,11 +337,12 @@ class WanDiT(nn.Module):
     def embed(self, x, t, context, carve: WanCarve | None = None,
               clip_fea=None, y=None):
         """Patchify, curve reorder (zero pad to a block multiple), time and
-        text embeddings. Returns ``(h0, aux)``."""
-        if clip_fea is not None or y is not None:
-            raise NotImplementedError("Wan I2V inputs (clip_fea, y) are not "
-                                      "ported")
+        text embeddings. Returns ``(h0, aux)``. I2V: ``y`` [B, 20, F, H, W]
+        joins ``x`` on the channel axis; ``clip_fea`` [B, 257, 1280]
+        becomes the image tokens ahead of the text context."""
         cfg = self.cfg
+        if y is not None:
+            x = torch.cat([x, y], dim=1)
         h, grid = L.patchify_3d(self.patch_embedding,
                                 x.to(cfg.torch_dtype), cfg.patch_size)
         b, s, d = h.shape
@@ -297,11 +350,17 @@ class WanDiT(nn.Module):
         e6 = self.time_projection(L.silu(e)).reshape(b, 6, d).float()
         te = self.text_embedding
         ctx = te.fc2(L.gelu_tanh(te.fc1(context.to(cfg.torch_dtype))))
+        image_tokens = 0
+        if clip_fea is not None:
+            img = self.img_emb(clip_fea).to(cfg.torch_dtype)
+            ctx = torch.cat([img, ctx], dim=1)
+            image_tokens = clip_fea.shape[1]
         if carve is not None:
             h = h[:, carve.curve_order]
             s_pad = -(-s // 128) * 128
             h = torch.nn.functional.pad(h, (0, 0, 0, s_pad - s))
-        aux = dict(e=e, e6=e6, ctx=ctx, grid=grid, seq=s)
+        aux = dict(e=e, e6=e6, ctx=ctx, grid=grid, seq=s,
+                   image_tokens=image_tokens)
         return h, aux
 
     def trunk(self, h, aux, carve: WanCarve | None = None, top_k=None,
@@ -321,7 +380,7 @@ class WanDiT(nn.Module):
                                                            aux["grid"]))
         for blk in self.blocks:
             h = blk(h, aux["e6"], aux["ctx"], carve, rope_cos, rope_sin,
-                    top_k)
+                    top_k, aux["image_tokens"])
         return h
 
     def head(self, h, aux, carve: WanCarve | None = None):
@@ -342,7 +401,8 @@ class WanDiT(nn.Module):
                 clip_fea=None, y=None, top_k=None, mesh=None,
                 remat: bool = False):
         """Velocity prediction. x [B, C, F, H, W]; t [B]; context
-        [B, text_len, text_dim] padded text embeddings. f32 out."""
+        [B, text_len, text_dim] padded text embeddings; I2V: ``clip_fea``
+        and ``y`` (see ``embed``). f32 out."""
         h, aux = self.embed(x, t, context, carve, clip_fea, y)
         h = self.trunk(h, aux, carve, top_k, mesh, remat)
         return self.head(h, aux, carve)
@@ -361,6 +421,8 @@ def init_wan_(model: WanDiT, generator: torch.Generator):
         if isinstance(mod, WanAttention):
             mod.norm_q.fill_(1.0)
             mod.norm_k.fill_(1.0)
+            if hasattr(mod, "norm_k_img"):
+                mod.norm_k_img.fill_(1.0)
         elif isinstance(mod, (WanBlock, WanHead)):
             mod.modulation.normal_(generator=generator).div_(d ** 0.5)
     return model

@@ -102,6 +102,19 @@ class HYVideoT2VPipeline:
         re-noise draw; otherwise both come from one generator seeded with
         ``opts.seed``, the re-noise draws after the initial latents."""
         validate_hy_options(opts)
+        # the first schedule uses flow_shift; scheduler_shift_list only
+        # drives the re-shifts at ProRes switches
+        return self._denoise(text_states, text_mask, text_states_2, opts,
+                             opts.flow_shift, negative, on_step,
+                             initial_latents, stage_noises)
+
+    def _denoise(self, text_states, text_mask, text_states_2, opts, shift0,
+                 negative, on_step, initial_latents, stage_noises,
+                 prepare=None, model_input=None, pin=None):
+        """The Euler loop over the ProRes stages. Three hooks for I2V, each
+        taking the stage index: ``prepare(latents, 0)`` once on the drawn
+        latents, ``model_input(latents, stage)`` for the model's input,
+        and ``pin(latents, stage)`` after each step and each re-noise."""
         model, cfg = self.model, self.cfg
         dev = model.device
         shapes = self._stage_shapes(opts)
@@ -109,6 +122,7 @@ class HYVideoT2VPipeline:
         splits = [int(n * r) for r in opts.step_rate_list]
         cfg_on = negative is not None and opts.guidance_scale > 1.0
         batch = 2 if cfg_on else 1
+        nc = cfg.out_channels   # the latents' channels
 
         def stack(pos, neg, dtype=None):
             a = torch.as_tensor(pos, device=dev, dtype=dtype)[None]
@@ -149,18 +163,20 @@ class HYVideoT2VPipeline:
             latents = torch.as_tensor(initial_latents, dtype=torch.float32,
                                       device=dev)[None]
         else:
-            latents = torch.randn((1, cfg.in_channels, *shapes[0][0]),
-                                  generator=gen, device=dev)
+            latents = torch.randn((1, nc, *shapes[0][0]), generator=gen,
+                                  device=dev)
+        if prepare is not None:
+            latents = prepare(latents, 0)
 
-        # the first schedule uses flow_shift; scheduler_shift_list only
-        # drives the re-shifts at ProRes switches
-        schedule = flow_match_schedule(n, shift=opts.flow_shift)
+        schedule = flow_match_schedule(n, shift=shift0)
         stage_idx = 0
         residual = None
         carve = carves[0]
         for i in range(n):
             t = torch.full((batch,), schedule.timestep(i), device=dev)
-            x = latents.expand(batch, *latents.shape[1:])
+            x = latents if model_input is None else model_input(latents,
+                                                                stage_idx)
+            x = x.expand(batch, *x.shape[1:])
             img, txth, aux = model.embed(x, t, txt, mask, txt2, carve,
                                          guidance)
             if not compute[i] and residual is not None:
@@ -180,7 +196,7 @@ class HYVideoT2VPipeline:
                 # re-shift first: the x0 revert uses the new schedule
                 schedule = flow_match_schedule(
                     n, shift=opts.scheduler_shift_list[stage_idx])
-                lat_shape = (1, cfg.in_channels, *shapes[stage_idx][0])
+                lat_shape = (1, nc, *shapes[stage_idx][0])
                 if stage_noises is not None and stage_idx in stage_noises:
                     noise = torch.as_tensor(stage_noises[stage_idx],
                                             dtype=torch.float32,
@@ -192,6 +208,8 @@ class HYVideoT2VPipeline:
                 latents = schedule.renoise_to_step(i + 1, clean, noise)
             else:
                 latents = schedule.step(i, latents, v)
+            if pin is not None:
+                latents = pin(latents, stage_idx)
             if on_step is not None:
                 on_step(i, latents[0])
         return latents[0]

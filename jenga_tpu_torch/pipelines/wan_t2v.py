@@ -22,7 +22,8 @@ carries the step's real rate).
 The TeaCache schedule is a pure function of the timesteps the model sees
 (``diffusion/skip.py``), with the stage start forced; its metric
 is the relative L1 change of the modulation embedding, computed here in
-torch. ``initial_latents``, ``stage2_noise`` and ``on_step`` let a test
+torch, rescaled by the checkpoint's polynomial, keyed by the pipeline's
+``model_id`` and ``use_ret_steps``. ``initial_latents``, ``stage2_noise`` and ``on_step`` let a test
 feed both implementations the same random draws and watch the trajectory.
 
 Not ported: the ``dpm++`` solver (raises ``NotImplementedError``).
@@ -72,9 +73,14 @@ class WanT2VPipeline:
 
     VAE_STRIDE = (4, 8, 8)
 
-    def __init__(self, model: wan_lib.WanDiT):
+    def __init__(self, model: wan_lib.WanDiT,
+                 model_id: str = "wan-t2v-1.3b"):
+        """``model_id`` names the checkpoint whose TeaCache polynomial the
+        skip schedule uses (``TEACACHE_COEFFS``; an unknown id takes the
+        1.3B one, as in the JAX package)."""
         self.model = model
         self.cfg = model.cfg
+        self.model_id = model_id
 
     def _latent_shape(self, opts: WanT2VOptions):
         w, h = opts.size
@@ -131,8 +137,7 @@ class WanT2VPipeline:
             prev, cur = embs[i - 1], embs[i]
             metrics[i] = (np.abs(cur - prev).mean()
                           / max(np.abs(prev).mean(), 1e-12))
-        # the 1.3B checkpoint's rescale polynomial (14B runs are not ported)
-        coeffs = TEACACHE_COEFFS[("wan-t2v-1.3b", opts.use_ret_steps)]
+        coeffs = self.teacache_coeffs(opts.use_ret_steps)
         if opts.use_ret_steps:
             ret_steps, cutoff = 5, opts.sampling_steps
         else:
@@ -140,6 +145,12 @@ class WanT2VPipeline:
         return teacache_compute_schedule(metrics, opts.teacache_thresh,
                                          coeffs, ret_steps, cutoff,
                                          stage_starts=stage_starts)
+
+    def teacache_coeffs(self, use_ret_steps: bool):
+        """The rescale polynomial of ``(model_id, use_ret_steps)``."""
+        return TEACACHE_COEFFS.get(
+            (self.model_id, use_ret_steps),
+            TEACACHE_COEFFS[("wan-t2v-1.3b", use_ret_steps)])
 
     @staticmethod
     def _drop_rate(opts: WanT2VOptions, idx: int, n: int) -> float:
@@ -174,6 +185,26 @@ class WanT2VPipeline:
                 residual = False
         return kinds
 
+    def _context2(self, context, context_null):
+        """[2, text_len, text_dim]: the prompt and the null prompt, each
+        cut or zero-padded to ``text_len``."""
+        cfg, dev = self.cfg, self.model.device
+
+        def pad_ctx(x):
+            x = torch.as_tensor(x, dtype=torch.float32,
+                                device=dev)[:cfg.text_len]
+            return torch.nn.functional.pad(
+                x, (0, 0, 0, cfg.text_len - x.shape[0]))
+        return torch.stack([pad_ctx(context), pad_ctx(context_null)])
+
+    def _carve(self, latent_shape, opts: WanT2VOptions):
+        """A stage's carve, built with the first drop rate (the JAX quirk;
+        ``top_k`` carries the step's real rate)."""
+        return wan_lib.make_wan_carve(
+            self.cfg, self._token_grid(latent_shape), opts.sa_drop_rates[0],
+            opts.p_remain, curve=opts.curve, q_rows=opts.q_group,
+            joint_sel=opts.joint_sel, device=self.model.device)
+
     @torch.inference_mode()
     def generate(self, context, context_null, opts: WanT2VOptions,
                  on_step=None, initial_latents=None, stage2_noise=None):
@@ -186,35 +217,34 @@ class WanT2VPipeline:
         draws from the generator seeded with ``opts.seed``, which draws
         the initial latents first and the switch's noise second."""
         kinds = self.step_plan(opts)
-        model, cfg = self.model, self.cfg
-        dev = model.device
+        dev = self.model.device
         shapes = self._stage_latent_shapes(opts)
-        switch = opts.turbo_switch_step if opts.enable_turbo else None
         gen = torch.Generator(device=dev).manual_seed(opts.seed)
         if initial_latents is not None:
             latents = torch.as_tensor(initial_latents, dtype=torch.float32,
                                       device=dev)[None]
         else:
             latents = torch.randn((1, *shapes[0]), generator=gen, device=dev)
-        if switch is not None:
+        noise2 = None
+        if opts.enable_turbo:
             if stage2_noise is not None:
                 noise2 = torch.as_tensor(stage2_noise, dtype=torch.float32,
                                          device=dev)[None]
             else:
                 noise2 = torch.randn((1, *shapes[1]), generator=gen,
                                      device=dev)
+        carves = [self._carve(shape, opts) for shape in shapes]
+        return self._denoise(kinds, latents, self._context2(
+            context, context_null), carves, opts, on_step, noise2)
 
-        def pad_ctx(x):
-            x = torch.as_tensor(x, dtype=torch.float32,
-                                device=dev)[:cfg.text_len]
-            return torch.nn.functional.pad(
-                x, (0, 0, 0, cfg.text_len - x.shape[0]))
-        ctx2 = torch.stack([pad_ctx(context), pad_ctx(context_null)])
-
-        carves = [wan_lib.make_wan_carve(
-            cfg, self._token_grid(shape), opts.sa_drop_rates[0],
-            opts.p_remain, curve=opts.curve, q_rows=opts.q_group,
-            joint_sel=opts.joint_sel, device=dev) for shape in shapes]
+    def _denoise(self, kinds, latents, ctx2, carves, opts, on_step,
+                 noise2=None, **cond):
+        """The UniPC loop over the host's step plan, CFG on a batch of 2;
+        ``cond`` holds the I2V inputs (``clip_fea``, ``y``, batch 2) that
+        every embed takes."""
+        model = self.model
+        dev = model.device
+        switch = opts.turbo_switch_step if opts.enable_turbo else None
         carve = carves[0]
         scheds = self._schedules(opts)
         schedule = scheds[0]
@@ -224,7 +254,7 @@ class WanT2VPipeline:
         for idx, kind in enumerate(kinds):
             t2 = torch.full((2,), schedule.timestep(idx), device=dev)
             x2 = torch.cat([latents, latents])
-            h0, aux = model.embed(x2, t2, ctx2, carve)
+            h0, aux = model.embed(x2, t2, ctx2, carve, **cond)
             if kind == "skip":
                 v2 = model.head(h0 + residual, aux, carve)
             else:
@@ -244,7 +274,7 @@ class WanT2VPipeline:
                 # sigma; then the shifted schedule with a reset corrector
                 clean = trilinear_resize(
                     unipc_step_to_zero(schedule, idx, v, latents),
-                    shapes[1][1:])
+                    noise2.shape[2:])
                 latents = unipc_add_noise(schedule, idx + 1, clean, noise2)
                 schedule = scheds[1]
                 state = dataclasses.replace(

@@ -3,6 +3,8 @@
     python -m jenga_tpu_torch.profile_step --video-length 33 125 \\
         --out profile_step.jsonl
     python -m jenga_tpu_torch.profile_step --model wan --out wan.jsonl
+    python -m jenga_tpu_torch.profile_step --model hyvideo-i2v
+    python -m jenga_tpu_torch.profile_step --model wan-i2v
 
 ``--model hyvideo`` (default) builds the full HunyuanVideo T2V DiT and,
 for each video length at --video-size (default 1280x720), profiles one
@@ -11,8 +13,14 @@ random latents and 256 text tokens. ``--model wan`` builds the full
 Wan2.1 T2V 1.3B DiT and, for each video length at --video-size (default
 832x480, 81 frames), profiles one carved trunk step (the 1.3b-base carve,
 joint q8, drop 0.75) and one dense warm-up trunk step (the carve's dense
-fallback), on the CFG batch of 2 with a random 512-token context. Weights
-are a seeded random init on the card. For each step:
+fallback), on the CFG batch of 2 with a random 512-token context.
+``--model hyvideo-i2v`` profiles the HunyuanVideo-I2V token_replace DiT
+(first-frame tokens on the t=0 modulation) at 1280x720x33f, a carved and
+a dense step (the carve's dense fallback). ``--model wan-i2v`` profiles
+Wan2.1-I2V-14B at the 81-frame 832x480 latent 21x60x104 (the 480p-class
+area), a carved and a dense warm-up step with random CLIP tokens (257)
+and conditioning ``y``. Weights are a seeded random init on the card.
+For each step:
 
   * the trunk's time (CUDA events; one warm-up run, then --reps runs),
   * one trunk run under torch.profiler, device time summed by kernel
@@ -29,15 +37,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import time
 
 import torch
 
-from .configs.presets import get_hy_preset, get_wan_preset
-from .models.hyvideo import HUNYUAN_VIDEO_T2V, make_hy_carve
-from .models.wan import WAN_T2V_1_3B, make_wan_carve
+from .configs.presets import (get_hy_i2v_options, get_hy_preset,
+                              get_wan_i2v_options, get_wan_preset)
+from .models.hyvideo import HUNYUAN_VIDEO_T2V, hy_i2v_config, make_hy_carve
+from .models.wan import CLIP_DIM, WAN_T2V_1_3B, make_wan_carve
 from .ops.block_sparse_attention import block_sparse_attention
 from .ops.flash_attention import dense_attention
 from .runtime import HunyuanVideoSampler, WanSampler
@@ -102,9 +112,12 @@ def _profile(trunk, dev, reps: int) -> dict:
 
 
 @torch.inference_mode()
-def profile_hyvideo(sampler, size, video_length, reps):
+def profile_hyvideo(sampler, size, video_length, reps, i2v=False):
+    """The Base stage-0 carved trunk step; with ``i2v`` (token_replace)
+    also the dense fallback step."""
     cfg, dev = sampler.cfg, sampler.device
-    opts = get_hy_preset("base", size=size, video_length=video_length)
+    opts = (get_hy_i2v_options if i2v else get_hy_preset)(
+        "base", size=size, video_length=video_length)
     lat, grid = sampler.pipeline._stage_shapes(opts)[0]
     carve = make_hy_carve(cfg, grid, opts.sa_drop_rates[0], opts.p_remain,
                           q_rows=opts.q_group, joint_sel=opts.joint_sel,
@@ -118,21 +131,34 @@ def profile_hyvideo(sampler, size, video_length, reps):
     txt2 = torch.randn((1, cfg.text_states_dim_2), generator=gen, device=dev)
     model = sampler.model
     img, txth, aux = model.embed(x, t, txt, mask, txt2, carve)
-    row = {"model": "hyvideo", "step": "carved", "size": list(size),
-           "video_length": video_length,
-           "tokens": img.shape[1] + txth.shape[1],
-           "blocks": -(-(img.shape[1] + txth.shape[1]) // 128)}
-    row.update(_profile(lambda: model.trunk(img, txth, aux, carve), dev,
-                        reps))
-    return [row]
+    steps = [("carved", carve)]
+    if i2v:
+        steps.append(("dense", dataclasses.replace(carve, sa_drop_rate=0.0)))
+    rows = []
+    for step, c in steps:
+        row = {"model": "hyvideo-i2v-token_replace" if i2v else "hyvideo",
+               "step": step, "size": list(size),
+               "video_length": video_length,
+               "tokens": img.shape[1] + txth.shape[1],
+               "blocks": -(-(img.shape[1] + txth.shape[1]) // 128)}
+        row.update(_profile(lambda: model.trunk(img, txth, aux, c), dev,
+                            reps))
+        rows.append(row)
+    return rows
 
 
 @torch.inference_mode()
 def profile_wan(sampler, size, frame_num, reps):
+    """A carved and a dense warm-up trunk step; an I2V model (by its
+    config) gets random CLIP tokens and conditioning ``y``, with the
+    options the CLI builds for a 480p-class area."""
     cfg, dev = sampler.cfg, sampler.device
-    opts = get_wan_preset("1.3b-base", size=size, frame_num=frame_num)
+    i2v = cfg.model_type == "i2v"
+    opts = (get_wan_i2v_options(832 * 480, size=size, frame_num=frame_num)
+            if i2v else get_wan_preset("1.3b-base", size=size,
+                                       frame_num=frame_num))
     pipe = sampler.pipeline
-    lat = pipe._latent_shape(opts)
+    lat = (16, *pipe._latent_shape(opts)[1:])
     carve = make_wan_carve(cfg, pipe._token_grid(lat), opts.sa_drop_rates[0],
                            opts.p_remain, curve=opts.curve,
                            q_rows=opts.q_group, joint_sel=opts.joint_sel,
@@ -142,12 +168,19 @@ def profile_wan(sampler, size, frame_num, reps):
     t = torch.full((2,), 900.0, device=dev)
     ctx = torch.randn((2, cfg.text_len, cfg.text_dim), generator=gen,
                       device=dev)
+    cond = {}
+    if i2v:
+        cond = dict(clip_fea=torch.randn((2, 257, CLIP_DIM), generator=gen,
+                                         device=dev),
+                    y=torch.randn((2, cfg.in_dim - 16, *lat[1:]),
+                                  generator=gen, device=dev))
     model = sampler.model
-    h0, aux = model.embed(x, t, ctx, carve)
+    h0, aux = model.embed(x, t, ctx, carve, **cond)
     rows = []
     for step, c in (("carved", carve),
                     ("dense", dataclasses.replace(carve, sa_drop_rate=0.0))):
-        row = {"model": "wan-t2v-1.3b", "step": step, "size": list(size),
+        row = {"model": "wan-i2v-14b" if i2v else "wan-t2v-1.3b",
+               "step": step, "size": list(size),
                "video_length": frame_num, "batch": 2, "tokens": carve.seqlen,
                "blocks": h0.shape[1] // 128}
         row.update(_profile(lambda: model.trunk(h0, aux, c), dev, reps))
@@ -157,7 +190,8 @@ def profile_wan(sampler, size, frame_num, reps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser("jenga_tpu_torch.profile_step")
-    ap.add_argument("--model", choices=["hyvideo", "wan"], default="hyvideo")
+    ap.add_argument("--model", default="hyvideo",
+                    choices=["hyvideo", "wan", "hyvideo-i2v", "wan-i2v"])
     ap.add_argument("--video-size", type=int, nargs=2, default=None,
                     metavar=("W", "H"))
     ap.add_argument("--video-length", type=int, nargs="+", default=None)
@@ -170,6 +204,14 @@ def main(argv=None):
     if args.model == "wan":
         sampler = WanSampler(WAN_T2V_1_3B, device="cuda")
         run, size, lengths = profile_wan, (832, 480), [81]
+    elif args.model == "wan-i2v":
+        sampler = WanSampler.from_task("i2v-14B", device="cuda")
+        run, size, lengths = profile_wan, (832, 480), [81]
+    elif args.model == "hyvideo-i2v":
+        sampler = HunyuanVideoSampler(hy_i2v_config("token_replace"),
+                                      device="cuda", i2v=True)
+        run, size, lengths = functools.partial(profile_hyvideo, i2v=True), \
+            (1280, 720), [33]
     else:
         sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda")
         run, size, lengths = profile_hyvideo, (1280, 720), [33]

@@ -1,7 +1,8 @@
 """The CUDA kernels (block-sparse attention in its all-member and
 membership modes, dense attention, and the probe kernels P1-P4) against
-their plain torch versions, and the CLI's ``--tiny`` runs, on a CUDA card
-(skipped without one). This file imports no JAX, so it also runs on a
+their plain torch versions, the HunyuanVideo token_replace pinning, and
+the CLI's ``--tiny`` runs (T2V and I2V), on a CUDA card (skipped without
+one). This file imports no JAX, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
@@ -225,6 +226,57 @@ def test_dense_kernel_matches_plain_on_card(cuda_device, b, sq, skv, kv_len):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("skv", [257, 512])
+def test_dense_kernel_wan14b_cross_attention_on_card(cuda_device, skv):
+    """D at Wan2.1-14B's cross-attention head count (40) over the 257 CLIP
+    image keys (a ragged last key tile of one key) and the 512 text keys,
+    no kv_len, CFG batch 2 with a ragged query count; 1e-2 max abs."""
+    q, k, v = _dense_inputs(16, cuda_device, 2, 1000, skv, h=40)
+    before = dense_attention.launches
+    out = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert dense_attention.launches == before + 1
+    ref = dense_attention_plain(q.float(), k.float(), v.float())
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_hy_token_replace_pins_first_frame_on_card(cuda_device):
+    """HunyuanVideo-I2V token_replace on the card (the bf16 tiny model of
+    ``--tiny``, head dim 128, carved at 256x128x33f): after every step
+    frame 0 equals the conditioning latent bit for bit, the rest moves,
+    and the block-sparse kernel ran."""
+    from jenga_tpu_torch.cli import _tiny_config
+    from jenga_tpu_torch.configs.presets import get_hy_i2v_options
+    from jenga_tpu_torch.models.hyvideo import hy_i2v_config
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler
+    cfg = hy_i2v_config("token_replace", _tiny_config("cuda"))
+    sampler = HunyuanVideoSampler(cfg, device="cuda", seed=0, i2v=True)
+    opts = get_hy_i2v_options("base", size=(256, 128), video_length=33,
+                              num_inference_steps=4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    (lat0, _), (lat1, _) = sampler.pipeline._stage_shapes(opts)
+    assert lat0 == lat1     # Base: both stages at full resolution
+    img = [torch.randn((16, 1, lat0[1], lat0[2]), generator=gen,
+                       device="cuda")] * 2
+    n = sampler.TEXT_LEN
+    txt = torch.randn((n, cfg.text_states_dim), generator=gen, device="cuda")
+    mask = torch.ones((n,), dtype=torch.int32, device="cuda")
+    txt2 = torch.randn((cfg.text_states_dim_2,), generator=gen,
+                       device="cuda")
+    pinned = []
+    before = block_sparse_attention.launches
+    lat = sampler.predict_i2v(
+        img, txt, mask, txt2, opts,
+        on_step=lambda i, x: pinned.append(torch.equal(x[:, :1], img[0])))
+    torch.cuda.synchronize()
+    assert pinned == [True] * 4
+    assert torch.isfinite(lat).all() and lat[:, 1:].abs().max() > 0
+    assert block_sparse_attention.launches > before
+
+
+@pytest.mark.gpu
 def test_dense_kernel_rejects_what_it_does_not_cover(cuda_device):
     q, k, v = _dense_inputs(15, cuda_device, 1, 256, 256)
     with pytest.raises(TypeError):
@@ -353,6 +405,14 @@ def test_probe_kernels_reject_what_they_do_not_cover(cuda_device):
       "--infer-steps", "3"], ("block_sparse_attn",)),
     (["wan-t2v", "--video-size", "224", "128", "--video-length", "17",
       "--infer-steps", "6"], ("block_sparse_attn", "dense_attn")),
+    (["hyvideo-i2v", "--video-size", "256", "128", "--video-length", "33",
+      "--infer-steps", "3"], ("block_sparse_attn",)),
+    (["hyvideo-i2v", "--i2v-condition-type", "latent_concat",
+      "--video-size", "256", "128", "--video-length", "33",
+      "--infer-steps", "3"], ("block_sparse_attn",)),
+    (["wan-i2v", "--video-size", "224", "128", "--max-area", "28672",
+      "--video-length", "17", "--infer-steps", "6"],
+     ("block_sparse_attn", "dense_attn")),
 ])
 def test_cli_tiny_runs_on_card(cuda_device, tmp_path, argv, kernels):
     """``--tiny`` with the CLI's default device: the tiny models are bf16

@@ -19,6 +19,7 @@ import torch
 from jenga_tpu.curves.blocks import build_curve_plan
 from jenga_tpu.diffusion import unipc as junipc
 from jenga_tpu.models import wan as jwan
+from jenga_tpu.diffusion.skip import TEACACHE_COEFFS as JAX_TEACACHE_COEFFS
 from jenga_tpu.pipelines.wan_t2v import WanT2VOptions as JaxOptions
 from jenga_tpu.pipelines.wan_t2v import WanT2VPipeline as JaxPipeline
 from jenga_tpu_torch.configs.presets import get_wan_preset
@@ -209,6 +210,31 @@ def test_trajectory_matches_jax(small):
     assert err < 1e-4
 
 
+@pytest.mark.parametrize("key", sorted(JAX_TEACACHE_COEFFS))
+def test_teacache_schedule_keyed_by_model_id(small, key):
+    """Each (model_id, use_ret_steps) key of TEACACHE_COEFFS: the pipeline
+    built with that model_id takes that polynomial, and its 50-step skip
+    schedule over the realized timesteps equals the JAX pipeline's with
+    the same model_id (an unknown id falls back to the 1.3B polynomial in
+    both)."""
+    cfg, params, model = small
+    model_id, ret = key
+    opts = get_wan_preset("1.3b-base", use_ret_steps=ret, shift=5.0)
+    pipe = WanT2VPipeline(model, model_id=model_id)
+    assert pipe.teacache_coeffs(ret) == JAX_TEACACHE_COEFFS[key]
+    assert WanT2VPipeline(model, model_id="unknown").teacache_coeffs(ret) \
+        == JAX_TEACACHE_COEFFS[("wan-t2v-1.3b", ret)]
+    sched = junipc.unipc_schedule(50, shift=opts.shift)
+    ts = np.array([sched.timestep(i) for i in range(50)])
+    jpipe = JaxPipeline(cfg, jax.tree.map(jnp.asarray, params),
+                        model_id=model_id)
+    want = jpipe._teacache_schedule(
+        ts, JaxOptions(**dataclasses.asdict(opts)), set())
+    got = pipe._teacache_compute(ts, opts)
+    print(f"{key}: {int(got.sum())} of 50 computed")
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("preset,over", [
     ("1.3b-base", dict(solver="dpm++"))])
 def test_turbo_and_dpm_not_ported(small, preset, over):
@@ -238,9 +264,30 @@ def test_cli_tiny_cpu(tmp_path):
     assert lat.shape == (16, 3, 8, 8) and np.isfinite(lat).all()
 
 
+def test_cli_tiny_cpu_14b_preset(tmp_path):
+    """``--preset 14b-base`` runs (its size, drop rates and p_remain on the
+    tiny model); the full-width command builds WAN_T2V_14B with model_id
+    wan-t2v-14b through WanSampler.from_task."""
+    from jenga_tpu_torch.runtime import WanSampler
+    assert WanSampler.CONFIGS["t2v-14B"] == twan.WAN_T2V_14B
+    assert WanSampler.MODEL_IDS == {"t2v-1.3B": "wan-t2v-1.3b",
+                                    "t2v-14B": "wan-t2v-14b",
+                                    "i2v-14B": "wan-i2v-720p"}
+    out = tmp_path / "v.npy"
+    r = _run(["-m", "jenga_tpu_torch.cli", "wan-t2v", "--tiny", "--device",
+              "cpu", "--preset", "14b-base", "--latents-only",
+              "--infer-steps", "6", "--video-size", "64", "64",
+              "--video-length", "9", "--save-path", str(out)], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lat = np.load(out)
+    assert lat.shape == (16, 3, 8, 8) and np.isfinite(lat).all()
+
+
 def test_wan_modules_import_no_jax():
     r = _run(["-c", "import sys; import jenga_tpu_torch.cli, "
               "jenga_tpu_torch.runtime, jenga_tpu_torch.pipelines.wan_t2v, "
+              "jenga_tpu_torch.pipelines.wan_i2v, "
+              "jenga_tpu_torch.pipelines.hyvideo_i2v, "
               "jenga_tpu_torch.models.wan, jenga_tpu_torch.diffusion.unipc; "
               "assert 'jax' not in sys.modules, 'jax imported'; print('ok')"])
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr[-2000:]
