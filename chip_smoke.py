@@ -107,7 +107,29 @@ result line):
      CLI's default device (the tiny models are bf16 with head dim 128
      there) through the CLI's entry point in a fresh process; exit 0,
      latents finite and non-zero, and the kernels launched (HunyuanVideo:
-     the block-sparse kernel; Wan: it and D).
+     the block-sparse kernel; Wan: it and D);
+  8. HunyuanVideo T2V at full width and depth through
+     HunyuanVideoSampler(use_fp8=True) (seeded init quantized in place on
+     the card, 344 linears in e4m3): the e4m3 bytes and scale of the
+     largest single-block weight and a refiner weight (from phase 3's
+     identical seeded init) and of the head's seeded noise (the
+     zero-initialised layers get quantized noise, as _perturb gives the
+     bf16 model) equal the CPU's quantization of the same weights; the
+     Jenga-Base preset at 1280x720x33f for 4 steps, latents finite and
+     non-zero, the block-sparse kernel launched 60 x the computed steps;
+     one carved velocity with fp8 weights (twice) and again after
+     dequantize_tree_fp8 in place: bit-equal, or within the phase-5
+     bound if cuBLAS picked another algorithm;
+  9. Wan2.1 T2V 1.3B at full width and depth under dpm++ (the 1.3b-base
+     preset with solver="dpm++"), at 832x480x81f with a dense, a carved
+     and a skipped step, then (9b) the 1.3b-turbo preset under dpm++
+     with the switch placed so that the fresh-state step after it is
+     carved; latents and launch counts as in phase 4;
+  10. one fidelity row of tools/fidelity.py: Wan-1.3B arch (port seeded
+     init, head perturbed) at 832x480x33f over 20 steps, joint q8 carved
+     against dense; relative error in (0, 0.10], the TPU's row beside it
+     for reference; K1 launched 30 x the carved steps and D 30 x (2 x
+     dense + carved) steps over both arms.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -734,9 +756,18 @@ def phase_hy_main_path():
     base = {"launches": run.counts, "step_s": timer.step_s,
             "peak_gib": peak}
     turbo = phase_hy_turbo(sampler, txt, mask, txt2)
+    # phase 8 holds the e4m3 bytes its sampler quantizes from the same
+    # seeded init against the CPU's quantization of these bf16 weights
+    ref = {name: sampler.model.get_submodule(name).w.cpu()
+           for name in FP8_REF_LAYERS}
     del sampler
     torch.cuda.empty_cache()
-    return base, turbo
+    return base, turbo, ref
+
+
+# phase 8: the largest single-block weight (3072 -> 21504) and a refiner
+# weight, quantized on the card by the fp8 sampler
+FP8_REF_LAYERS = ("single_blocks.0.linear1", "txt_in.blocks.0.qkv")
 
 
 def phase_hy_turbo(sampler, txt, mask, txt2):
@@ -1347,6 +1378,220 @@ def phase_cli_tiny():
     done(t0)
 
 
+def phase_hy_fp8(ref_weights, bf16_peak):
+    """Phase 8: HunyuanVideo T2V Base with ``use_fp8=True``, full width and
+    depth."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_preset
+    from jenga_tpu_torch.models.fp8 import (dequantize_tree_fp8,
+                                            quantize_linear_fp8)
+    from jenga_tpu_torch.models.hyvideo import (HUNYUAN_VIDEO_T2V,
+                                                make_hy_carve)
+    from jenga_tpu_torch.models.layers import Affine
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler
+    t0 = phase("8. HunyuanVideo T2V Jenga-Base with fp8 weights "
+               "(use_fp8=True), full width+depth")
+    torch.cuda.reset_peak_memory_stats()
+    ti = time.perf_counter()
+    sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda", seed=0,
+                                  use_fp8=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - ti
+    model, cfg = sampler.model, sampler.cfg
+    fp8 = {n: m for n, m in model.named_modules()
+           if isinstance(m, Affine) and m.w8 is not None}
+    n_q = sum(m.w8.numel() for m in fp8.values())
+    n_all = sum(p.numel() for p in model.parameters())
+    w_gib = sum(p.numel() * p.element_size()
+                for p in model.parameters()) / 2**30
+    print(f"   model: {len(fp8)} fp8 layers holding {n_q} of {n_all} "
+          f"params; weights {w_gib:.2f} GiB; init + quantization "
+          f"{init_s:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the zero-initialised layers (quantized zeros) get the quantization,
+    # on the card, of seeded noise, as _perturb gives the bf16 model; then
+    # the bytes quantized on the card against the CPU's quantization of
+    # the same weights: two from phase 3's identical seeded init, and the
+    # head's noise
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    layers = [model.final_layer.linear, model.final_layer.adaLN] + [
+        blk.adaLN for blk in model.txt_in.blocks]
+    with torch.no_grad():
+        for lin in layers:
+            w = (torch.randn(lin.w8.shape, generator=gen, device="cuda")
+                 * 0.02).to(lin.dtype)
+            w8, sc = quantize_linear_fp8(w)
+            lin.w8.copy_(w8)
+            lin.scale.copy_(sc)
+            if lin is model.final_layer.linear:
+                ref_weights = {**ref_weights, "final_layer.linear": w.cpu()}
+    for name, w in ref_weights.items():
+        w8, sc = quantize_linear_fp8(w)
+        mod = model.get_submodule(name)
+        same = torch.equal(mod.w8.cpu().view(torch.uint8),
+                           w8.view(torch.uint8))
+        print(f"   {name} {tuple(w.shape)}: e4m3 bytes on the card == CPU "
+              f"quantization: {same}; scale {mod.scale.item():.6e} vs "
+              f"{sc.item():.6e}")
+        if not same or mod.scale.item() != sc.item():
+            fail(f"{name}: the card's fp8 quantization differs from the "
+                 f"CPU's")
+
+    n = 4
+    opts = get_hy_preset("base", size=(1280, 720), video_length=33,
+                         num_inference_steps=n)
+    computed = int(sampler.pipeline.compute_schedule(opts).sum())
+    txt, mask, txt2 = _text(gen, cfg, n_pad=40)
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+    with _Launches() as run:
+        lat = sampler.predict(txt, mask, txt2, opts, on_step=timer)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]} "
+          f"({computed} of {n} computed)")
+    print(f"   peak memory: {peak:.2f} GiB (phase 3 in bf16: "
+          f"{bf16_peak:.2f} GiB); kernel launches: {run.counts}")
+    _check_latents(lat, (16, 9, 90, 160))
+    layers_n = cfg.double_blocks + cfg.single_blocks
+    expect = {"block_sparse_attn": computed * layers_n,
+              "block_sparse_attn_members": 0, "dense_attn": 0, **NO_PROBES}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({computed} "
+             f"computed steps x {layers_n} blocks)")
+    del lat
+
+    # one carved velocity with the fp8 weights (twice: run-to-run), then
+    # with the weights dequantized in place to bf16: the same GEMM operands
+    lat_shape, grid = sampler.pipeline._stage_shapes(opts)[0]
+    carve = make_hy_carve(cfg, grid, opts.sa_drop_rates[0], opts.p_remain,
+                          q_rows=opts.q_group, joint_sel=opts.joint_sel,
+                          device="cuda")
+    x = torch.randn((1, cfg.in_channels, *lat_shape), generator=gen,
+                    device="cuda")
+    t = torch.full((1,), 900.0, device="cuda")
+    def fwd():
+        with torch.inference_mode():
+            v = model(x, t, txt[None], mask[None], txt2[None], carve)
+        torch.cuda.synchronize()
+        return v
+
+    v8, v8b = fwd(), fwd()
+    td = time.perf_counter()
+    dequantize_tree_fp8(model)
+    torch.cuda.synchronize()
+    deq_s = time.perf_counter() - td
+    vb = fwd()
+    rerun = ((v8 - v8b).norm() / v8.norm()).item()
+    rel = ((v8 - vb).norm() / vb.norm()).item()
+    exact = torch.equal(v8, vb)
+    print(f"   velocity, fp8 vs the same weights dequantized in place to "
+          f"bf16 ({deq_s:.3f} s): bit-equal {exact}, relative error "
+          f"{rel:.3e} (fp8 run to run {rerun:.3e}; bound {E2E_REL_TOL} "
+          f"where not bit-equal)")
+    if not torch.isfinite(v8).all() or not (exact or rel <= E2E_REL_TOL):
+        fail(f"fp8 velocity {rel} away from its bf16 dequant")
+    del sampler, model, v8, v8b, vb
+    _free()
+    done(t0)
+    return {"launches": run.counts, "step_s": timer.step_s,
+            "peak_gib": peak, "weight_gib": w_gib, "fp8_layers": len(fp8),
+            "fp8_params": n_q, "velocity_bit_equal": exact,
+            "velocity_rel_err": rel}
+
+
+def phase_wan_dpm():
+    """Phase 9: Wan2.1 T2V 1.3B under DPM-Solver++, Base then Turbo."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_wan_preset
+    from jenga_tpu_torch.models.wan import WAN_T2V_1_3B
+    from jenga_tpu_torch.runtime import WanSampler
+    t0 = phase("9. Wan2.1 T2V 1.3B Jenga-Base under dpm++, full width+depth")
+    cfg = WAN_T2V_1_3B
+    sampler = WanSampler(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _perturb_wan(sampler.model, gen)
+    for steps in range(6, 13):
+        opts = get_wan_preset("1.3b-base", size=(832, 480), frame_num=81,
+                              sampling_steps=steps, solver="dpm++")
+        kinds = sampler.pipeline.step_plan(opts)
+        if {"dense", "carved", "skip"} <= set(kinds):
+            break
+    else:
+        fail("no step count in 6..12 gives dense, carved and skipped dpm++ "
+             "steps")
+    print(f"   chose sampling_steps={steps}: schedule {kinds}")
+    ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    base = _wan_run(sampler, opts, kinds, ctx, null)
+    done(t0)
+
+    t0 = phase("9b. Wan2.1 T2V 1.3B Turbo under dpm++, full width+depth")
+    chosen = None
+    for steps in range(6, 13):
+        for switch in range(1, steps - 1):
+            opts = get_wan_preset("1.3b-turbo", size=(832, 480),
+                                  frame_num=81, sampling_steps=steps,
+                                  turbo_switch_step=switch, solver="dpm++")
+            kinds = sampler.pipeline.step_plan(opts)
+            if ("dense" in kinds and "carved" in kinds[:switch + 1]
+                    and kinds[switch + 1] == "carved"):
+                chosen = opts, kinds
+                break
+        if chosen:
+            break
+    if chosen is None:
+        fail("no step count in 6..12 and switch step give a dense step, a "
+             "carved stage-0 step and a carved fresh-state step")
+    opts, kinds = chosen
+    print(f"   chose sampling_steps={opts.sampling_steps}, "
+          f"turbo_switch_step={opts.turbo_switch_step} (the fresh dpm++ "
+          f"state at step {opts.turbo_switch_step + 1}): schedule {kinds}")
+    turbo = _wan_run(sampler, opts, kinds, ctx, null)
+    turbo["switch"] = opts.turbo_switch_step
+    del sampler
+    _free()
+    done(t0)
+    return base, turbo
+
+
+def phase_fidelity():
+    """Phase 10: one row of tools/fidelity.py, Wan-1.3B joint q8 carved vs
+    dense at 832x480x33f over 20 steps."""
+    import torch
+    from jenga_tpu_torch.tools import fidelity
+    t0 = phase("10. fidelity: Wan-1.3B arch 832x480x33f, 20 steps, joint q8 "
+               "carved vs dense (tools/fidelity.py)")
+    suite = fidelity.build_suite("wan", "cuda")
+    plans = {arm: suite.sampler.pipeline.step_plan(suite.arms[arm])
+             for arm in ("q8", "dense")}
+    layers = suite.sampler.cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    with _Launches() as run:
+        row, = fidelity.run_suite(suite, ["q8_vs_dense"], gpu_line())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"   {json.dumps(row)}")
+    print(f"   relative_error {row['relative_error']:.6f}, final_mse "
+          f"{row['final_mse']:.6e} (the TPU row, JAX init, for reference "
+          f"only: 0.020879, FIDELITY.json); peak {peak:.2f} GiB; kernel "
+          f"launches: {run.counts}")
+    n_dense = sum(p.count("dense") for p in plans.values())
+    n_carved = sum(p.count("carved") for p in plans.values())
+    expect = {"block_sparse_attn": layers * n_carved,
+              "block_sparse_attn_members": 0,
+              "dense_attn": layers * (2 * n_dense + n_carved), **NO_PROBES}
+    if run.counts != expect:
+        fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
+             f"{n_carved} carved steps x {layers} layers)")
+    if not 0.0 < row["relative_error"] <= 0.10:
+        fail(f"carved vs dense relative error {row['relative_error']} "
+             f"outside (0, 0.10]")
+    del suite
+    _free()
+    done(t0)
+    return {"launches": run.counts, "row": row, "peak_gib": peak}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1361,13 +1606,16 @@ def main():
     t_all = time.perf_counter()
     phase_toolchain()
     recs, main_rec, member, dense, extra = phase_kernel_cases()
-    hy, hy_turbo = phase_hy_main_path()
+    hy, hy_turbo, fp8_ref = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
     hy_i2v = phase_hy_i2v_main_path()
     wan_i2v = phase_wan_i2v_main_path()
     rel = phase_end_to_end()
     probes = phase_probes()
     phase_cli_tiny()
+    hy_fp8 = phase_hy_fp8(fp8_ref, hy["peak_gib"])
+    wan_dpm, wan_dpm_turbo = phase_wan_dpm()
+    fid = phase_fidelity()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -1378,7 +1626,11 @@ def main():
             "wan_t2v_1.3b_turbo": wan_turbo["launches"],
             "hyvideo_i2v_token_replace": hy_i2v["token_replace"]["launches"],
             "hyvideo_i2v_latent_concat": hy_i2v["latent_concat"]["launches"],
-            "wan_i2v_14b": wan_i2v["launches"]}
+            "wan_i2v_14b": wan_i2v["launches"],
+            "hyvideo_t2v_base_fp8": hy_fp8["launches"],
+            "wan_t2v_1.3b_base_dpm": wan_dpm["launches"],
+            "wan_t2v_1.3b_turbo_dpm": wan_dpm_turbo["launches"],
+            "fidelity_wan_1.3b_q8_vs_dense": fid["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}

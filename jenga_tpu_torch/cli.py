@@ -10,14 +10,22 @@ Usage:
       --no-joint-sel --latents-only --video-length 33 --infer-steps 8
   python -m jenga_tpu_torch.cli hyvideo-i2v --i2v-condition-type \
       latent_concat --latents-only --video-length 33 --infer-steps 8
+  python -m jenga_tpu_torch.cli hyvideo-t2v --use-fp8 --latents-only \
+      --video-length 33 --infer-steps 8
   python -m jenga_tpu_torch.cli wan-t2v --preset 14b-base --latents-only \
       --save-path out.npy
+  python -m jenga_tpu_torch.cli wan-t2v --sample-solver dpm++ --latents-only
   python -m jenga_tpu_torch.cli wan-i2v --max-area 399360 --latents-only
 
 HunyuanVideo presets: base, turbo, flash, 3stage, accvideo (the last four
 switch resolution between stages, ProRes); ``hyvideo-i2v`` takes base.
 Wan presets: 1.3b-base, 1.3b-turbo (Wan2.1-T2V-1.3B), 14b-base and
 14b-turbo (Wan2.1-T2V-14B); ``wan-i2v`` runs Wan2.1-I2V-14B.
+``wan-t2v --task`` picks the model when given, else the preset does (the
+JAX CLI's ``--task`` defaults to t2v-1.3B whatever the preset says);
+``--sample-solver`` picks UniPC or DPM-Solver++. ``hyvideo-t2v --use-fp8``
+stores the published model's large linear weights in e4m3; as in the JAX
+CLI it does not act on ``--tiny``.
 
 The port has no checkpoints, text encoders, image encoders or VAE yet:
 the DiT runs from a seeded random init on the device, the text states are
@@ -52,6 +60,15 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--video-size", type=int, nargs=2, default=None,
                    metavar=("W", "H"))
     p.add_argument("--video-length", type=int, default=None)
+    p.add_argument("--sa-drop-rates", type=float, nargs="*", default=None,
+                   help="drop rate per stage (first, last)")
+    p.add_argument("--p-remain-rates", type=float, default=None,
+                   help="top-p probability mass the block selection keeps")
+    p.add_argument("--curve-type", type=str, default=None,
+                   choices=["gilbert", "sliced", "transposed"],
+                   help="space-filling curve for token reordering (the I2V "
+                        "commands parse it and, as in the JAX CLI, ignore "
+                        "it)")
     p.add_argument("--q-group", type=_q_group_arg, default=None,
                    help="query blocks that share one KV block list "
                         "(presets: 8; 1 = per-row selection)")
@@ -76,6 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     h = sub.add_parser("hyvideo-t2v", help="HunyuanVideo text-to-video")
     h.add_argument("--preset", default="base",
                    choices=["base", "turbo", "flash", "3stage", "accvideo"])
+    h.add_argument("--embedded-cfg-scale", type=float, default=6.0)
+    h.add_argument("--use-fp8", action="store_true",
+                   help="e4m3 storage of the large linear weights, "
+                        "dequantized to bf16 in each product (not with "
+                        "--tiny, as in the JAX CLI)")
     _common(h)
     i = sub.add_parser("hyvideo-i2v", help="HunyuanVideo image-to-video")
     i.add_argument("--preset", default="base", choices=["base"])
@@ -94,9 +116,14 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--preset", default="1.3b-base",
                    choices=["1.3b-base", "1.3b-turbo", "14b-base",
                             "14b-turbo"])
+    w.add_argument("--task", default=None, choices=["t2v-1.3B", "t2v-14B"],
+                   help="the model (default: the preset's)")
     _common(w)
-    w.add_argument("--sa-drop-rates", type=float, nargs="+", default=None)
+    w.add_argument("--sample-shift", type=float, default=None)
+    w.add_argument("--enable-turbo", action="store_true")
     w.add_argument("--teacache-thresh", type=float, default=None)
+    w.add_argument("--sample-solver", default=None,
+                   choices=["unipc", "dpm++"])
     wi = sub.add_parser("wan-i2v", help="Wan2.1 image-to-video (14B)")
     wi.add_argument("--max-area", type=int, default=720 * 1280,
                     help="pixel budget of the video; <= 832*480 also sets "
@@ -145,6 +172,7 @@ def _save_latents(args, out, t0):
 
 
 def _hy_overrides(args) -> dict:
+    """The options both HunyuanVideo commands take from their flags."""
     over = {"seed": args.seed}
     if args.infer_steps:
         over["num_inference_steps"] = args.infer_steps
@@ -152,6 +180,10 @@ def _hy_overrides(args) -> dict:
         over["size"] = tuple(args.video_size)
     if args.video_length:
         over["video_length"] = args.video_length
+    if args.sa_drop_rates:
+        over["sa_drop_rates"] = tuple(args.sa_drop_rates)
+    if args.p_remain_rates is not None:
+        over["p_remain"] = args.p_remain_rates
     if args.q_group is not None:
         over["q_group"] = args.q_group
     if args.no_joint_sel:
@@ -166,14 +198,25 @@ def _zero_hy_text(cfg, n):
             np.zeros((cfg.text_states_dim_2,), np.float32))
 
 
-def run_hyvideo_t2v(args):
+def hy_t2v_options(args):
+    """``hyvideo-t2v``'s options: the preset, then the flags."""
     from .configs.presets import get_hy_preset
+    over = _hy_overrides(args)
+    if args.curve_type:
+        over["curve"] = args.curve_type
+    over["embedded_guidance_scale"] = args.embedded_cfg_scale
+    return get_hy_preset(args.preset, **over)
+
+
+def run_hyvideo_t2v(args):
     from .models.hyvideo import HUNYUAN_VIDEO_T2V
     from .runtime import HunyuanVideoSampler
 
-    opts = get_hy_preset(args.preset, **_hy_overrides(args))
+    opts = hy_t2v_options(args)
     cfg = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
-    sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed)
+    # --use-fp8 acts on the published model only, as in the JAX CLI
+    sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed,
+                                  use_fp8=args.use_fp8 and not args.tiny)
     text = _zero_hy_text(cfg, sampler.TEXT_LEN)
     t0 = time.time()
     _save_latents(args, sampler.predict(*text, opts), t0)
@@ -181,7 +224,8 @@ def run_hyvideo_t2v(args):
 
 def hy_i2v_options(args):
     """``hyvideo-i2v``'s options, by the JAX CLI's rule (the T2V preset
-    merged over the I2V defaults, then the flags)."""
+    merged over the I2V defaults, then the flags; ``--curve-type`` is
+    parsed and not applied)."""
     from .configs.presets import get_hy_i2v_options
     return get_hy_i2v_options(
         args.preset, i2v_condition_type=args.i2v_condition_type,
@@ -206,11 +250,10 @@ def run_hyvideo_i2v(args):
     _save_latents(args, sampler.predict_i2v(image_latents, *text, opts), t0)
 
 
-def run_wan_t2v(args):
-    import numpy as np
+def wan_t2v_options(args):
+    """``wan-t2v``'s options: the preset, then the flags, as the JAX
+    handler applies them."""
     from .configs.presets import get_wan_preset
-    from .runtime import WanSampler
-
     over = {"seed": args.seed}
     if args.infer_steps:
         over["sampling_steps"] = args.infer_steps
@@ -220,21 +263,45 @@ def run_wan_t2v(args):
         over["frame_num"] = args.video_length
     if args.sa_drop_rates:
         over["sa_drop_rates"] = tuple(args.sa_drop_rates)
+    if args.p_remain_rates is not None:
+        over["p_remain"] = args.p_remain_rates
+    if args.curve_type:
+        over["curve"] = args.curve_type
+    if args.sample_shift is not None:
+        over["shift"] = args.sample_shift
     if args.q_group is not None:
         over["q_group"] = args.q_group
     if args.no_joint_sel:
         over["joint_sel"] = False
+    if args.enable_turbo:
+        over["enable_turbo"] = True
     if args.teacache_thresh is not None:
         over["teacache_thresh"] = args.teacache_thresh
-    opts = get_wan_preset(args.preset, **over)
+    if args.sample_solver:
+        over["solver"] = args.sample_solver
+    return get_wan_preset(args.preset, **over)
 
+
+def wan_t2v_task(args) -> str:
+    """The published model ``wan-t2v`` builds: ``--task`` when given, else
+    the preset's (the JAX CLI's ``--task`` defaults to t2v-1.3B whatever
+    the preset)."""
+    if args.task:
+        return args.task
+    return "t2v-14B" if args.preset.startswith("14b") else "t2v-1.3B"
+
+
+def run_wan_t2v(args):
+    import numpy as np
+    from .runtime import WanSampler
+
+    opts = wan_t2v_options(args)
     if args.tiny:
         sampler = WanSampler(_tiny_wan_config(args.device),
                              device=args.device, seed=args.seed)
     else:
-        task = "t2v-14B" if args.preset.startswith("14b") else "t2v-1.3B"
-        sampler = WanSampler.from_task(task, device=args.device,
-                                       seed=args.seed)
+        sampler = WanSampler.from_task(wan_t2v_task(args),
+                                       device=args.device, seed=args.seed)
     ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
     t0 = time.time()
     _save_latents(args, sampler.generate(ctx, np.zeros_like(ctx), opts), t0)
@@ -258,6 +325,10 @@ def wan_i2v_inputs(args):
         over["sampling_steps"] = args.infer_steps
     if args.video_length:
         over["frame_num"] = args.video_length
+    if args.sa_drop_rates:
+        over["sa_drop_rates"] = tuple(args.sa_drop_rates)
+    if args.p_remain_rates is not None:
+        over["p_remain"] = args.p_remain_rates
     if args.tiny:
         over["frame_num"] = args.video_length or 9
     opts = get_wan_i2v_options(args.max_area, **over)

@@ -7,8 +7,10 @@ the nested dict/list tree of ``init_hyvideo_params`` / ``init_wan_params``
 Names are the tree paths joined with dots; ``None`` leaves (Wan's
 parameterless head norm) are dropped. JAX ``linear`` weights are
 ``[in, out]``; the port's are torch-style ``[out, in]``, and this is the
-one place that transposes them. Every leaf keeps its dtype (bf16 leaves
-arrive as ml_dtypes arrays).
+one place that transposes them, fp8 ``w8`` leaves too (a tree from
+``quantize_tree_fp8`` loads into a port module quantized the same way).
+Every leaf keeps its dtype (bf16 and e4m3 leaves arrive as ml_dtypes
+arrays).
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ __all__ = ["hyvideo_params_from_jax", "wan_params_from_jax"]
 
 
 def _to_tensor(a) -> torch.Tensor:
-    """numpy array (incl. ml_dtypes bfloat16) -> torch tensor, same dtype."""
+    """numpy array (incl. ml_dtypes bfloat16 and float8_e4m3fn) -> torch
+    tensor, same dtype and bytes."""
     a = np.array(a)     # a writable copy (JAX hands out read-only views)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(a)
 
 
@@ -46,7 +51,7 @@ def hyvideo_params_from_jax(tree) -> dict[str, torch.Tensor]:
             continue
         name = name[:-1]    # drop the trailing dot
         t = _to_tensor(leaf)
-        if name.endswith(".w") and t.ndim == 2:
+        if name.endswith((".w", ".w8")) and t.ndim == 2:
             t = t.T.contiguous()
         out[name] = t
     return out

@@ -444,7 +444,7 @@ class HYVideoDiT(nn.Module):
 
     @property
     def device(self):
-        return self.img_in.w.device
+        return next(self.parameters()).device
 
     def embed(self, x, t, text_states, text_mask, text_states_2,
               carve: HYCarve | None = None, guidance=None):

@@ -8,7 +8,9 @@ operands by multiplying after the cast), and RoPE tables are built on the
 host in f64 and applied in f32.
 
 Linear weights are stored torch-style, ``[out, in]``; the bridge from the
-JAX ``[in, out]`` layout transposes them once (``convert.py``). The
+JAX ``[in, out]`` layout transposes them once (``convert.py``). A linear
+layer may hold its weight in fp8 (``models/fp8.py``); ``linear``
+dequantizes it before the product. The
 parameter holders shared by the DiTs (``Affine``, ``Norm``, ``MLP``) and
 their JAX-distributed random init live here too.
 """
@@ -37,13 +39,19 @@ def param(shape, dtype, device):
 
 
 class Affine(nn.Module):
-    """Linear layer with params ``w`` [out, in] and optional ``b``;
-    ``zero`` marks the JAX package's zero-initialised layers."""
+    """Linear layer with params ``w`` [out, in] and optional ``b``; once
+    quantized (``models/fp8.py``), ``w8`` (e4m3, [out, in]) and its f32
+    per-tensor ``scale`` take the place of ``w``. ``dtype`` is the
+    weight's own dtype; ``zero`` marks the JAX package's zero-initialised
+    layers."""
 
     def __init__(self, d_in, d_out, dtype, device, bias=True, zero=False):
         super().__init__()
         self.zero = zero
+        self.dtype = dtype
         self.w = param((d_out, d_in), dtype, device)
+        self.register_parameter("w8", None)
+        self.register_parameter("scale", None)
         self.b = param((d_out,), dtype, device) if bias else None
 
     def forward(self, x):
@@ -93,8 +101,14 @@ def init_affine_or_norm_(mod: nn.Module, generator: torch.Generator) -> bool:
 
 def linear(p, x):
     """Affine map with params ``p.w`` [out, in] and optional ``p.b``,
-    computed in x's dtype (the weights share it)."""
-    return F.linear(x, p.w, p.b)
+    computed in x's dtype (the weights share it). An fp8 layer's weight is
+    dequantized first as the JAX ``linear`` does it: ``w8`` and ``scale``
+    each to bf16, their product rounded in bf16, then taken to x's
+    dtype."""
+    if getattr(p, "w8", None) is None:
+        return F.linear(x, p.w, p.b)
+    w = p.w8.to(torch.bfloat16) * p.scale.to(torch.bfloat16)
+    return F.linear(x, w.to(x.dtype), p.b)
 
 
 def rms_norm(x, weight=None, eps: float = 1e-6):

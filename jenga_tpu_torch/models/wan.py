@@ -191,7 +191,7 @@ class ImageEmbedding(nn.Module):
     def forward(self, clip_fea):
         x = L.layer_norm(clip_fea.float(), self.norm_in.w, self.norm_in.b)
         # the JAX package's jax.nn.gelu, whose default is the tanh form
-        x = self.fc2(L.gelu_tanh(self.fc1(x.to(self.fc1.w.dtype))))
+        x = self.fc2(L.gelu_tanh(self.fc1(x.to(self.fc1.dtype))))
         return L.layer_norm(x, self.norm_out.w, self.norm_out.b)
 
 
@@ -325,7 +325,7 @@ class WanDiT(nn.Module):
 
     @property
     def device(self):
-        return self.patch_embedding.w.device
+        return next(self.parameters()).device
 
     def time_embed(self, t):
         """f32 time embedding ``e`` [B, dim] (also the TeaCache metric)."""

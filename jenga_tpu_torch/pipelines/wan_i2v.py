@@ -8,7 +8,9 @@ encoding, zero frames after it), so the DiT sees 16 + 4 + 16 = 36 input
 channels; the CLIP ViT features of the image enter through the decoupled
 image cross-attention. Carving, the dense warm-up and TeaCache are the
 T2V sampler's (``WanT2VPipeline.step_plan`` and its loop), over one
-stage: I2V has no Turbo switch.
+stage: I2V has no Turbo switch. ``WanI2VOptions(solver=...)`` picks UniPC
+or DPM-Solver++ as in T2V (the JAX ``wan-i2v`` command has no solver
+flag, and neither has the port's).
 
 ``build_i2v_mask`` and ``i2v_latent_size`` are numpy copies of the JAX
 package's functions of the same names, held to them value for value by

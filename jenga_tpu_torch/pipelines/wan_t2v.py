@@ -1,4 +1,5 @@
-"""Wan2.1 text-to-video sampler: carved DiT + UniPC + TeaCache + Turbo.
+"""Wan2.1 text-to-video sampler: carved DiT + UniPC or DPM-Solver++ +
+TeaCache + Turbo.
 
 Port of ``jenga_tpu/pipelines/wan_t2v.py``. CFG's cond and uncond
 branches ride one batch of 2; every step's kind is fixed on the host
@@ -15,18 +16,19 @@ Turbo (``enable_turbo``) runs the steps up to ``turbo_switch_step`` at
 0.75 of the spatial size (rounded down to even), then reverts to x0 on
 the current schedule, upsamples trilinearly, re-noises to the *current*
 schedule's next sigma, and continues on a schedule shifted by 2 with a
-fresh UniPC state (the reference's corrector reset). Each stage has its
-own carve, both built with the first drop rate (the JAX quirk; ``top_k``
-carries the step's real rate).
+fresh solver state at the next step index: UniPC's with the reference's
+corrector window ``disable_corrector=24..37``, DPM-Solver++'s with no
+model outputs. Each stage has its own carve, both built with the first
+drop rate (the JAX quirk; ``top_k`` carries the step's real rate).
 
+``opts.solver`` picks the solver, ``unipc`` or ``dpm++`` (``_solver``).
 The TeaCache schedule is a pure function of the timesteps the model sees
-(``diffusion/skip.py``), with the stage start forced; its metric
-is the relative L1 change of the modulation embedding, computed here in
-torch, rescaled by the checkpoint's polynomial, keyed by the pipeline's
-``model_id`` and ``use_ret_steps``. ``initial_latents``, ``stage2_noise`` and ``on_step`` let a test
-feed both implementations the same random draws and watch the trajectory.
-
-Not ported: the ``dpm++`` solver (raises ``NotImplementedError``).
+under that solver's schedules (``diffusion/skip.py``), with the stage
+start forced; its metric is the relative L1 change of the modulation
+embedding, computed here in torch, rescaled by the checkpoint's
+polynomial, keyed by the pipeline's ``model_id`` and ``use_ret_steps``.
+``initial_latents``, ``stage2_noise`` and ``on_step`` let a test feed both
+implementations the same random draws and watch the trajectory.
 """
 
 from __future__ import annotations
@@ -40,11 +42,23 @@ import torch
 from ..configs.validate import validate_wan_options
 from ..diffusion.prores import trilinear_resize
 from ..diffusion.skip import TEACACHE_COEFFS, teacache_compute_schedule
-from ..diffusion.unipc import (unipc_add_noise, unipc_init, unipc_schedule,
-                               unipc_step, unipc_step_to_zero)
+from ..diffusion import dpm
+from ..diffusion import unipc
 from ..models import wan as wan_lib
 
 __all__ = ["WanT2VOptions", "WanT2VPipeline"]
+
+
+def _solver(name: str):
+    """(schedule, init, step, step_to_zero, add_noise) of a solver name,
+    ``unipc`` or ``dpm++`` (``dpm`` too, as in the JAX package)."""
+    if name == "unipc":
+        return (unipc.unipc_schedule, unipc.unipc_init, unipc.unipc_step,
+                unipc.unipc_step_to_zero, unipc.unipc_add_noise)
+    if name in ("dpm++", "dpm"):
+        return (dpm.dpm_schedule, dpm.dpm_init, dpm.dpm_step,
+                dpm.dpm_step_to_zero, dpm.dpm_add_noise)
+    raise ValueError(f"unknown solver {name!r} (unipc | dpm++)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,19 +117,13 @@ class WanT2VPipeline:
         return (f // pt, h // ph, w // pw)
 
     @staticmethod
-    def _check(opts: WanT2VOptions):
-        validate_wan_options(opts)
-        if opts.solver != "unipc":
-            raise NotImplementedError(
-                f"solver {opts.solver!r} is not ported (unipc only)")
-
-    @staticmethod
     def _schedules(opts: WanT2VOptions):
-        """The schedule of each stage (Turbo's second is shifted by 2)."""
-        scheds = [unipc_schedule(opts.sampling_steps, shift=opts.shift)]
+        """The solver's schedule of each stage (Turbo's second is shifted
+        by 2)."""
+        mk_sched = _solver(opts.solver)[0]
+        scheds = [mk_sched(opts.sampling_steps, shift=opts.shift)]
         if opts.enable_turbo:
-            scheds.append(unipc_schedule(opts.sampling_steps,
-                                         shift=opts.shift + 2))
+            scheds.append(mk_sched(opts.sampling_steps, shift=opts.shift + 2))
         return scheds
 
     @torch.inference_mode()
@@ -162,7 +170,7 @@ class WanT2VPipeline:
 
     def step_plan(self, opts: WanT2VOptions) -> list[str]:
         """Each step's kind on the host: "dense", "carved" or "skip"."""
-        self._check(opts)
+        validate_wan_options(opts)
         scheds = self._schedules(opts)
         n = scheds[0].num_steps
         switch = opts.turbo_switch_step if opts.enable_turbo else None
@@ -239,16 +247,17 @@ class WanT2VPipeline:
 
     def _denoise(self, kinds, latents, ctx2, carves, opts, on_step,
                  noise2=None, **cond):
-        """The UniPC loop over the host's step plan, CFG on a batch of 2;
+        """The solver loop over the host's step plan, CFG on a batch of 2;
         ``cond`` holds the I2V inputs (``clip_fea``, ``y``, batch 2) that
         every embed takes."""
         model = self.model
         dev = model.device
         switch = opts.turbo_switch_step if opts.enable_turbo else None
         carve = carves[0]
+        _, mk_init, do_step, to_zero, add_noise = _solver(opts.solver)
         scheds = self._schedules(opts)
         schedule = scheds[0]
-        state = unipc_init(schedule)
+        state = mk_init(schedule)
         n = schedule.num_steps
         residual = None
         for idx, kind in enumerate(kinds):
@@ -271,20 +280,21 @@ class WanT2VPipeline:
             v = v2[1:2] + opts.guide_scale * (v2[0:1] - v2[1:2])
             if idx == switch:
                 # x0, upsample, and re-noise on the first schedule's next
-                # sigma; then the shifted schedule with a reset corrector
-                clean = trilinear_resize(
-                    unipc_step_to_zero(schedule, idx, v, latents),
-                    noise2.shape[2:])
-                latents = unipc_add_noise(schedule, idx + 1, clean, noise2)
+                # sigma; then the shifted schedule with a fresh state (UniPC
+                # with the reference's corrector window)
+                clean = trilinear_resize(to_zero(schedule, idx, v, latents),
+                                         noise2.shape[2:])
+                latents = add_noise(schedule, idx + 1, clean, noise2)
                 schedule = scheds[1]
-                state = dataclasses.replace(
-                    unipc_init(schedule,
-                               disable_corrector=tuple(range(24, 38))),
-                    step_index=idx + 1)
+                state = mk_init(schedule)
+                if opts.solver == "unipc":
+                    state = dataclasses.replace(
+                        state, disable_corrector=tuple(range(24, 38)))
+                state = dataclasses.replace(state, step_index=idx + 1)
                 carve = carves[1]
                 residual = None
             else:
-                state, latents = unipc_step(schedule, state, v, latents)
+                state, latents = do_step(schedule, state, v, latents)
             if on_step is not None:
                 on_step(idx, latents[0])
         return latents[0]

@@ -5,6 +5,7 @@
     python -m jenga_tpu_torch.profile_step --model wan --out wan.jsonl
     python -m jenga_tpu_torch.profile_step --model hyvideo-i2v
     python -m jenga_tpu_torch.profile_step --model wan-i2v
+    python -m jenga_tpu_torch.profile_step --use-fp8
 
 ``--model hyvideo`` (default) builds the full HunyuanVideo T2V DiT and,
 for each video length at --video-size (default 1280x720), profiles one
@@ -19,7 +20,10 @@ fallback), on the CFG batch of 2 with a random 512-token context.
 a dense step (the carve's dense fallback). ``--model wan-i2v`` profiles
 Wan2.1-I2V-14B at the 81-frame 832x480 latent 21x60x104 (the 480p-class
 area), a carved and a dense warm-up step with random CLIP tokens (257)
-and conditioning ``y``. Weights are a seeded random init on the card.
+and conditioning ``y``. Weights are a seeded random init on the card;
+``--use-fp8`` (``--model hyvideo`` only) quantizes the large linear
+weights to e4m3 as ``hyvideo-t2v --use-fp8`` does, so the dequant of each
+weight before its product lands in "other".
 For each step:
 
   * the trunk's time (CUDA events; one warm-up run, then --reps runs),
@@ -137,7 +141,8 @@ def profile_hyvideo(sampler, size, video_length, reps, i2v=False):
     rows = []
     for step, c in steps:
         row = {"model": "hyvideo-i2v-token_replace" if i2v else "hyvideo",
-               "step": step, "size": list(size),
+               "step": step, "fp8": model.img_in.w8 is not None,
+               "size": list(size),
                "video_length": video_length,
                "tokens": img.shape[1] + txth.shape[1],
                "blocks": -(-(img.shape[1] + txth.shape[1]) // 128)}
@@ -196,8 +201,12 @@ def main(argv=None):
                     metavar=("W", "H"))
     ap.add_argument("--video-length", type=int, nargs="+", default=None)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--use-fp8", action="store_true",
+                    help="e4m3 weights (--model hyvideo)")
     ap.add_argument("--out", type=str, default=None)
     args = ap.parse_args(argv)
+    if args.use_fp8 and args.model != "hyvideo":
+        ap.error("--use-fp8 takes --model hyvideo")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -213,7 +222,8 @@ def main(argv=None):
         run, size, lengths = functools.partial(profile_hyvideo, i2v=True), \
             (1280, 720), [33]
     else:
-        sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda")
+        sampler = HunyuanVideoSampler(HUNYUAN_VIDEO_T2V, device="cuda",
+                                      use_fp8=args.use_fp8)
         run, size, lengths = profile_hyvideo, (1280, 720), [33]
     size = tuple(args.video_size or size)
     rows = []

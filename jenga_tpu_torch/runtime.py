@@ -1,10 +1,14 @@
 """Sampler entry points of the port.
 
-``HunyuanVideoSampler(cfg, params=None, device=..., i2v=False)`` and
+``HunyuanVideoSampler(cfg, params=None, device=..., i2v=False,
+use_fp8=False)`` and
 ``WanSampler(cfg, params=None, device=..., model_id=...)`` build their DiT
 on ``device`` from a converted state dict
 (``convert.hyvideo_params_from_jax`` / ``convert.wan_params_from_jax``)
 or, with ``params=None``, from a seeded random init on the device itself.
+HunyuanVideo's ``use_fp8`` then quantizes the large linear weights to e4m3
+in place (``models/fp8.py``); Wan has no such flag in the JAX package, and
+its model takes ``quantize_tree_fp8`` directly.
 ``WanSampler.from_task`` builds a published Wan config by task name with
 its TeaCache ``model_id``, as the JAX package's ``from_pretrained`` does.
 ``predict`` / ``predict_i2v`` / ``generate`` / ``generate_i2v`` take
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from .models import wan as wan_lib
+from .models.fp8 import quantize_tree_fp8
 from .models.hyvideo import HYVideoConfig, HYVideoDiT, init_hyvideo_
 from .models.wan import WanConfig, WanDiT, init_wan_
 from .pipelines.hyvideo_i2v import HYVideoI2VPipeline
@@ -53,11 +58,14 @@ class HunyuanVideoSampler:
     TEXT_LEN = 256
 
     def __init__(self, cfg: HYVideoConfig, params=None, device="cuda",
-                 seed: int = 0, i2v: bool = False):
+                 seed: int = 0, i2v: bool = False, use_fp8: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = _build(HYVideoDiT, init_hyvideo_, cfg, params,
                             self.device, seed)
+        if use_fp8:
+            # after the init or load, as the JAX from_pretrained does
+            quantize_tree_fp8(self.model)
         pipe_cls = HYVideoI2VPipeline if i2v else HYVideoT2VPipeline
         self.pipeline = pipe_cls(self.model)
 

@@ -1,8 +1,8 @@
 """The CUDA kernels (block-sparse attention in its all-member and
 membership modes, dense attention, and the probe kernels P1-P4) against
-their plain torch versions, the HunyuanVideo token_replace pinning, and
-the CLI's ``--tiny`` runs (T2V and I2V), on a CUDA card (skipped without
-one). This file imports no JAX, so it also runs on a
+their plain torch versions, the HunyuanVideo token_replace pinning, the
+fp8 ``linear``, and the CLI's ``--tiny`` runs (T2V and I2V, dpm++), on a
+CUDA card (skipped without one). This file imports no JAX, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from jenga_tpu_torch.models.fp8 import (quantize_linear_fp8,
+                                        quantize_tree_fp8)
+from jenga_tpu_torch.models.layers import Affine, linear
 from jenga_tpu_torch.ops.attention_probe import (EPILOGUE_VARIANTS,
                                                  SPLIT_VARIANTS,
                                                  attention_probe,
@@ -405,6 +408,9 @@ def test_probe_kernels_reject_what_they_do_not_cover(cuda_device):
       "--infer-steps", "3"], ("block_sparse_attn",)),
     (["wan-t2v", "--video-size", "224", "128", "--video-length", "17",
       "--infer-steps", "6"], ("block_sparse_attn", "dense_attn")),
+    (["wan-t2v", "--sample-solver", "dpm++", "--video-size", "224", "128",
+      "--video-length", "17", "--infer-steps", "6"],
+     ("block_sparse_attn", "dense_attn")),
     (["hyvideo-i2v", "--video-size", "256", "128", "--video-length", "33",
       "--infer-steps", "3"], ("block_sparse_attn",)),
     (["hyvideo-i2v", "--i2v-condition-type", "latent_concat",
@@ -430,3 +436,27 @@ def test_cli_tiny_runs_on_card(cuda_device, tmp_path, argv, kernels):
     assert lat.ndim == 4 and np.isfinite(lat).all() and np.abs(lat).max() > 0
     for name in kernels:
         assert counters[name].launches > before[name], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fp8_linear_on_card(cuda_device, dtype):
+    """An fp8 layer on the card: the e4m3 bytes and scale quantized there
+    equal the CPU's quantization of the same weight, and its product equals
+    ``F.linear`` of its bf16 dequant (in the layer's dtype) bit for bit:
+    the same GEMM on the same operands."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mod = Affine(3072, 1024, dtype, cuda_device)
+    mod.w.normal_(generator=gen)
+    mod.b.normal_(generator=gen)
+    w8_cpu, scale_cpu = quantize_linear_fp8(mod.w.cpu())
+    x = torch.randn((2, 333, 3072), generator=gen, device=cuda_device,
+                    dtype=dtype)
+    assert quantize_tree_fp8(mod) == [""] and mod.w is None
+    assert torch.equal(mod.w8.cpu().view(torch.uint8),
+                       w8_cpu.view(torch.uint8))
+    assert mod.scale.item() == scale_cpu.item()
+    w = (mod.w8.to(torch.bfloat16) * mod.scale.to(torch.bfloat16)).to(dtype)
+    torch.testing.assert_close(linear(mod, x),
+                               torch.nn.functional.linear(x, w, mod.b),
+                               rtol=0, atol=0)

@@ -235,17 +235,6 @@ def test_teacache_schedule_keyed_by_model_id(small, key):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("preset,over", [
-    ("1.3b-base", dict(solver="dpm++"))])
-def test_turbo_and_dpm_not_ported(small, preset, over):
-    _, _, model = small
-    opts = get_wan_preset(preset, size=(64, 64), frame_num=9,
-                          sampling_steps=4, **over)
-    ctx = np.zeros((4, SMALL["text_dim"]), np.float32)
-    with pytest.raises(NotImplementedError):
-        WanT2VPipeline(model).generate(ctx, ctx, opts)
-
-
 def _run(args, cwd=None):
     env = dict(os.environ, PYTHONPATH=ROOT)
     return subprocess.run([sys.executable, *args], capture_output=True,
