@@ -130,6 +130,33 @@ result line):
      against dense; relative error in (0, 0.10], the TPU's row beside it
      for reference; K1 launched 30 x the carved steps and D 30 x (2 x
      dense + carved) steps over both arms.
+  11. the HunyuanVideo VAE (HYVAE_884_16C, seeded init, f32 with cuDNN's
+     default TF32 convs) on a HunyuanVideo-I2V token_replace sampler at
+     full width and depth: its decode_latents turns phase 3's final
+     latents (16x9x90x160) into a [3, 33, 720, 1280] video by 28 spatial
+     tiles (finite, in [-1, 1], not constant); then the tests' small
+     config decodes a seeded 5x5x5 latent (2 temporal x 2x2 spatial
+     tiles) on the card and on the CPU: relative L2 <= 2e-2;
+  11b. on the same sampler, a seeded [3, 720, 1280] image through
+     encode_image_latent to one [16, 1, 90, 160] latent per stage, the
+     token_replace run of phase 4c on it (frame 0 bit-exact after every
+     step, launches as there), decoded by the pipeline to [3, 33, 720,
+     1280];
+  12. the Wan VAE (WAN_VAE_16Z, seeded init, attention projections
+     perturbed) on a Wan2.1-I2V-14B sampler at full width and depth: its
+     decode_latents streams phase 4's final latents (16x21x60x104) one
+     latent frame at a time to [3, 81, 480, 832]; the decode's memory above
+     the resident sampler must stay under a third of the one-shot
+     decode's largest tensor (24.8 GB); then the tests' small config
+     decodes a seeded 4-frame latent on the card and on the CPU: relative
+     L2 <= 2e-2;
+  12b. on the same sampler, a seeded [3, 480, 832] image through
+     encode_image_latent(img, 81, 60, 104) (first frame and 80 zero
+     frames, streamed) to [16, 21, 60, 104] with the trunk resident, as
+     ``y`` of phase 4e's run (its options and schedule; CLIP tokens zero),
+     launches as there, decoded by the pipeline to [3, 81, 480, 832].
+     Phases 11-12b print their seconds, peak memory and the card's name
+     and power limit, and a ``vae:`` line gathers them.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -725,6 +752,21 @@ def _check_latents(lat, expect_shape):
           f"{lat.abs().mean().item():.6f}")
 
 
+def _check_video(video, expect_shape):
+    """A decoded video: the shape, finite, within [-1, 1], not constant."""
+    import torch
+    if tuple(video.shape) != expect_shape:
+        fail(f"video shape {tuple(video.shape)} != {expect_shape}")
+    if not torch.isfinite(video).all():
+        fail("the decoded video is not finite")
+    lo, hi = video.min().item(), video.max().item()
+    if not (-1.0 <= lo < hi <= 1.0):
+        fail(f"decoded video range [{lo}, {hi}] is constant or outside "
+             f"[-1, 1]")
+    print(f"   video {tuple(video.shape)} range [{lo:.4f}, {hi:.4f}] "
+          f"mean|x| {video.abs().mean().item():.6f}")
+
+
 def phase_hy_main_path():
     """Phases 3 and 3b on one model: Base, then ProRes Turbo with the
     membership mode."""
@@ -751,10 +793,11 @@ def phase_hy_main_path():
              f"{expect} (7 computed steps x 60 blocks)")
     if any(run.counts[p] for p in PROBES):
         fail(f"a probe kernel ran on the main path: {run.counts}")
-    del lat
     done(t0)
+    # phase 11 decodes these latents
     base = {"launches": run.counts, "step_s": timer.step_s,
-            "peak_gib": peak}
+            "peak_gib": peak, "latents": lat.cpu()}
+    del lat
     turbo = phase_hy_turbo(sampler, txt, mask, txt2)
     # phase 8 holds the e4m3 bytes its sampler quantizes from the same
     # seeded init against the CPU's quantization of these bf16 weights
@@ -850,7 +893,8 @@ def _wan_run(sampler, opts, kinds, ctx, null):
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {cfg.num_layers} layers)")
     return {"launches": run.counts, "step_s": timer.step_s,
-            "peak_gib": peak, "schedule": kinds, "density": density}
+            "peak_gib": peak, "schedule": kinds, "density": density,
+            "latents": lat.cpu()}
 
 
 def phase_wan_main_path():
@@ -926,11 +970,13 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape):
+def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape,
+                decode=False):
     """One HunyuanVideo-I2V generation with launch counts; under
     token_replace frame 0 must equal the stage's conditioning latent bit
-    for bit after every step. Checks the latents and the counts against
-    the host's skip schedule."""
+    for bit after every step. Checks the latents (with ``decode``, the
+    video the sampler's VAE decodes them to) and the counts against the
+    host's skip schedule."""
     import torch
     cfg = sampler.cfg
     n = opts.num_inference_steps
@@ -946,16 +992,22 @@ def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape):
         pinned.append(torch.equal(lat[:, :1], img_lats[stage]))
 
     with _Launches() as run:
-        lat = sampler.predict_i2v(img_lats, txt, mask, txt2, opts,
-                                  on_step=on_step)
+        out = sampler.predict_i2v(img_lats, txt, mask, txt2, opts,
+                                  on_step=on_step, decode=decode)
         torch.cuda.synchronize()
+    decode_s = time.perf_counter() - timer.last
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"   host skip schedule: {computed} of {n} steps computed; "
           f"per-step seconds: {[round(x, 4) for x in timer.step_s]}")
     print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}")
-    _check_latents(lat, expect_shape)
+    if decode:
+        _check_video(out, expect_shape)
+        print(f"   decode seconds: {decode_s:.3f}")
+    else:
+        _check_latents(out, expect_shape)
     if opts.i2v_condition_type == "token_replace":
-        if not all(pinned) or not torch.equal(lat[:, :1], img_lats[-1]):
+        if not all(pinned) or (not decode and not torch.equal(
+                out[:, :1], img_lats[-1])):
             fail(f"token_replace: frame 0 differs from the conditioning "
                  f"latent after steps {[i for i, p in enumerate(pinned) if not p]}")
         print(f"   frame 0 equals the conditioning latent after all {n} "
@@ -967,7 +1019,7 @@ def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape):
         fail(f"kernel launches {run.counts} != {expect} ({computed} computed "
              f"steps x {blocks} blocks)")
     return {"launches": run.counts, "step_s": timer.step_s,
-            "peak_gib": peak, "computed": computed}
+            "peak_gib": peak, "computed": computed, "decode_s": decode_s}
 
 
 def phase_hy_i2v_main_path():
@@ -1060,20 +1112,41 @@ def phase_wan_i2v_main_path():
     clip = torch.randn((257, CLIP_DIM), generator=gen, device="cuda")
     ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
     null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    out = _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
+                       (16, 21, lat_h, lat_w))
+    del sampler
+    _free()
+    done(t0)
+    return out, (opts, kinds)
+
+
+def _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
+                 expect_shape, decode=False):
+    """One Wan2.1-I2V generation at 832x480x81f with launch counts and
+    the list density; checks the latents (with ``decode``, the video the
+    sampler's VAE decodes them to) and the counts against the plan."""
+    import torch
+    cfg = sampler.cfg
+    lat_h, lat_w, frames = 60, 104, 81
     calls = []
     torch.cuda.reset_peak_memory_stats()
     timer = _StepTimer()
     with _recorded_sparse_calls(calls), _Launches() as run:
-        lat = sampler.generate_i2v(img_lat, clip, ctx, null, frames, lat_h,
-                                   lat_w, opts, on_step=timer)
+        out = sampler.generate_i2v(img_lat, clip, ctx, null, frames, lat_h,
+                                   lat_w, opts, on_step=timer, decode=decode)
         torch.cuda.synchronize()
+    decode_s = time.perf_counter() - timer.last
     peak = torch.cuda.max_memory_allocated() / 2**30
     density = (torch.stack([c[3] for c in calls]).mean().item()
                if calls else None)
     print(f"   per-step seconds: {[round(x, 4) for x in timer.step_s]}")
     print(f"   peak memory: {peak:.2f} GiB; kernel launches: {run.counts}; "
           f"block-sparse list density (mean over launches): {density}")
-    _check_latents(lat, (16, 21, lat_h, lat_w))
+    if decode:
+        _check_video(out, expect_shape)
+        print(f"   decode seconds: {decode_s:.3f}")
+    else:
+        _check_latents(out, expect_shape)
     n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
     layers = cfg.num_layers
     # D per computed step: the text and the image cross-attention of
@@ -1085,11 +1158,9 @@ def phase_wan_i2v_main_path():
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
-    del sampler, lat
-    _free()
-    done(t0)
     return {"launches": run.counts, "step_s": timer.step_s,
-            "peak_gib": peak, "schedule": kinds, "density": density}
+            "peak_gib": peak, "schedule": kinds, "density": density,
+            "decode_s": decode_s}
 
 
 def _kernel_vs_plain(fwd):
@@ -1592,6 +1663,220 @@ def phase_fidelity():
     return {"launches": run.counts, "row": row, "peak_gib": peak}
 
 
+# phases 11-12: the tests' small VAE configs (tests/test_torch_vae.py),
+# decoded on the card and on the CPU; cuDNN runs the f32 convs in TF32
+# (PyTorch's default), ~1e-3 relative a conv, so the bound is 2e-2
+HY_VAE_SMALL = dict(block_out_channels=(8, 16, 16, 16), norm_num_groups=4,
+                    layers_per_block=1, sample_tsize=16, sample_size=32)
+VAE_TF32_TOL = 2e-2
+
+
+def _perturb_vae(vae, gen, scale=0.02):
+    """Seeded noise on the Wan VAE's zero-initialised attention
+    projections, or the mid-block attention would add nothing."""
+    import torch
+    from jenga_tpu_torch.codec.vae_wan import Attention
+    with torch.no_grad():
+        for mod in vae.modules():
+            if isinstance(mod, Attention):
+                w = mod.proj.w
+                w.copy_(torch.randn(w.shape, generator=gen,
+                                    device=w.device) * scale)
+
+
+def _vae_card_vs_cpu(name, vae, decode, z):
+    """``decode(vae, z)`` on the CPU, then with the module and the latent
+    moved to the card: relative L2 within VAE_TF32_TOL."""
+    import torch
+    want = decode(vae, z)
+    got = decode(vae.to("cuda"), z.to("cuda")).cpu()
+    rel = ((got.double() - want.double()).norm()
+           / want.double().norm()).item()
+    print(f"   {name}: output {tuple(got.shape)}, card vs CPU relative L2 "
+          f"{rel:.3e} (bound {VAE_TF32_TOL}, TF32 convs)")
+    if not rel <= VAE_TF32_TOL:
+        fail(f"{name}: card vs CPU relative L2 {rel} > {VAE_TF32_TOL}")
+    return rel
+
+
+def _decode_on(sampler, latents, expect_shape):
+    """``sampler.decode_latents`` of host latents: (seconds, peak GiB, peak
+    GiB above what was resident before)."""
+    import torch
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    td = time.perf_counter()
+    video = sampler.decode_latents(latents.to("cuda"))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - td
+    peak = torch.cuda.max_memory_allocated()
+    _check_video(video, expect_shape)
+    del video
+    return sec, peak / 2**30, (peak - resident) / 2**30
+
+
+def phase_hy_vae(base_latents):
+    """Phases 11 and 11b on one HunyuanVideo-I2V token_replace sampler at
+    full width and depth with the published VAE attached."""
+    import torch
+    from jenga_tpu_torch.codec import vae_hy
+    from jenga_tpu_torch.configs.presets import get_hy_i2v_options
+    from jenga_tpu_torch.models.hyvideo import hy_i2v_config
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler
+    t0 = phase("11. HunyuanVideo VAE decode: HYVAE_884_16C (f32, TF32 "
+               "convs), phase 3's latents 16x9x90x160 -> 1280x720x33f")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ti = time.perf_counter()
+    vae = vae_hy.init_hyvae_(vae_hy.HYVAE(vae_hy.HYVAE_884_16C,
+                                          device="cuda"), gen)
+    n_vae = sum(p.numel() for p in vae.parameters())
+    sampler = HunyuanVideoSampler(hy_i2v_config("token_replace"),
+                                  device="cuda", seed=0, i2v=True, vae=vae)
+    _perturb(sampler.model, gen)
+    torch.cuda.synchronize()
+    print(f"   VAE {n_vae} params; HunyuanVideo-I2V token_replace "
+          f"sampler {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - ti:.3f} s (decode through its "
+          f"decode_latents: 28 spatial tiles of 9x32x32 latents)")
+    dec_s, peak, extra = _decode_on(sampler, base_latents, (3, 33, 720, 1280))
+    print(f"   decode seconds: {dec_s:.3f}; peak memory: {peak:.2f} GiB "
+          f"({extra:.2f} GiB above the resident sampler)")
+    small = vae_hy.HYVAEConfig(**HY_VAE_SMALL)
+    cpu_gen = torch.Generator().manual_seed(12)
+    rel = _vae_card_vs_cpu(
+        "small HY config, latent 5x5x5 (2 temporal x 2x2 spatial tiles)",
+        vae_hy.init_hyvae_(vae_hy.HYVAE(small), cpu_gen),
+        vae_hy.vae_decode_tiled,
+        torch.randn((1, 16, 5, 5, 5), generator=cpu_gen))
+    print(f"   gpu: {gpu_line()}")
+    done(t0)
+    decode = {"seconds": time.perf_counter() - t0, "decode_s": dec_s,
+              "peak_gib": peak, "peak_above_resident_gib": extra,
+              "small_card_vs_cpu_rel_l2": rel}
+
+    t0 = phase("11b. HunyuanVideo-I2V token_replace end to end: a seeded "
+               "720x1280 image encoded, 8 steps at full width and depth, "
+               "decoded")
+    opts = get_hy_i2v_options("base", size=(1280, 720), video_length=33,
+                              num_inference_steps=8,
+                              i2v_condition_type="token_replace")
+    img = torch.rand((3, 720, 1280), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    te = time.perf_counter()
+    img_lats = [sampler.encode_image_latent(img, lat[1], lat[2])
+                for lat, _ in sampler.pipeline._stage_shapes(opts)]
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - te
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    for a in img_lats:
+        if tuple(a.shape) != (16, 1, 90, 160) or not torch.isfinite(a).all():
+            fail(f"encoded image latent {tuple(a.shape)} is not a finite "
+                 f"(16, 1, 90, 160)")
+    print(f"   encode seconds: {enc_s:.3f} ({len(img_lats)} stages, one "
+          f"tiled encode each); peak memory {enc_peak:.2f} GiB; latent "
+          f"mean|x| {img_lats[0].abs().mean().item():.6f}")
+    txt, mask, txt2 = _text(gen, sampler.cfg, n_pad=40)
+    run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
+                      (3, 33, 720, 1280), decode=True)
+    print(f"   gpu: {gpu_line()}")
+    del sampler, vae, img_lats
+    _free()
+    done(t0)
+    run.update(seconds=time.perf_counter() - t0, encode_s=enc_s,
+               encode_peak_gib=enc_peak)
+    return decode, run
+
+
+def phase_wan_vae(base_latents, i2v_plan):
+    """Phases 12 and 12b on one Wan2.1-I2V-14B sampler at full width and
+    depth with the published VAE attached (the VAE of every Wan model)."""
+    import torch
+    from jenga_tpu_torch.codec import vae_wan
+    from jenga_tpu_torch.runtime import WanSampler
+    from jenga_tpu_torch.models.wan import CLIP_DIM
+    t0 = phase("12. Wan VAE decode, streamed: WAN_VAE_16Z (f32, TF32 convs),"
+               " phase 4's latents 16x21x60x104 -> 832x480x81f")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ti = time.perf_counter()
+    vae = vae_wan.init_wanvae_(vae_wan.WanVAE(vae_wan.WAN_VAE_16Z,
+                                              device="cuda"), gen)
+    _perturb_vae(vae, gen)
+    n_vae = sum(p.numel() for p in vae.parameters())
+    sampler = WanSampler.from_task("i2v-14B", device="cuda", seed=0, vae=vae)
+    _perturb_wan(sampler.model, gen)
+    torch.cuda.synchronize()
+    print(f"   VAE {n_vae} params; Wan2.1-I2V-14B sampler "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - ti:.3f} s (decode through its "
+          f"decode_latents, one latent frame at a time)")
+    dec_s, peak, extra = _decode_on(sampler, base_latents, (3, 81, 480, 832))
+    # the one-shot decode's 192-channel f32 tensor after the third stage's
+    # spatial upsample, 81 x 480 x 832
+    one_shot_gb = 192 * 81 * 480 * 832 * 4 / 1e9
+    print(f"   decode seconds: {dec_s:.3f}; peak memory: {peak:.2f} GiB, "
+          f"{extra:.2f} GiB above the resident sampler; the one-shot "
+          f"decode's largest single tensor: {one_shot_gb:.1f} GB")
+    if not extra * 2**30 < one_shot_gb * 1e9 / 3:
+        fail(f"the streamed decode took {extra:.2f} GiB above the resident "
+             f"sampler: not far below the one-shot's {one_shot_gb:.1f} GB")
+    small = vae_wan.WanVAEConfig(dim=8)
+    cpu_gen = torch.Generator().manual_seed(14)
+    small_vae = vae_wan.init_wanvae_(vae_wan.WanVAE(small), cpu_gen)
+    _perturb_vae(small_vae, cpu_gen, scale=0.2)
+    rel = _vae_card_vs_cpu(
+        "small Wan config (dim 8), 4-frame latent 16x4x6x8", small_vae,
+        vae_wan.wanvae_decode,
+        torch.randn((1, 16, 4, 6, 8), generator=cpu_gen))
+    print(f"   gpu: {gpu_line()}")
+    done(t0)
+    decode = {"seconds": time.perf_counter() - t0, "decode_s": dec_s,
+              "peak_gib": peak, "peak_above_resident_gib": extra,
+              "one_shot_tensor_gb": one_shot_gb,
+              "small_card_vs_cpu_rel_l2": rel}
+
+    t0 = phase("12b. Wan2.1-I2V-14B end to end: a seeded 480x832 image "
+               "encoded with the trunk resident, phase 4e's run, decoded")
+    opts, kinds = i2v_plan
+    img = torch.rand((3, 480, 832), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    te = time.perf_counter()
+    img_lat = sampler.encode_image_latent(img, 81, 60, 104)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - te
+    enc_peak = torch.cuda.max_memory_allocated()
+    if (tuple(img_lat.shape) != (16, 21, 60, 104)
+            or not torch.isfinite(img_lat).all()):
+        fail(f"encoded image latent {tuple(img_lat.shape)} is not a finite "
+             f"(16, 21, 60, 104)")
+    print(f"   encode seconds: {enc_s:.3f} (81 frames, streamed 1 + 4 x "
+          f"20); peak memory {enc_peak / 2**30:.2f} GiB, "
+          f"{(enc_peak - resident) / 2**30:.2f} GiB above the resident "
+          f"sampler; latent mean|x| {img_lat.abs().mean().item():.6f}")
+    print(f"   schedule {kinds} (phase 4e's); clip_fea is zeros until the "
+          f"CLIP image tower is ported; the text is seeded noise")
+    clip = torch.zeros((257, CLIP_DIM), device="cuda")
+    ctx = torch.randn((64, sampler.cfg.text_dim), generator=gen,
+                      device="cuda")
+    null = torch.randn((64, sampler.cfg.text_dim), generator=gen,
+                       device="cuda")
+    run = _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
+                       (3, 81, 480, 832), decode=True)
+    print(f"   gpu: {gpu_line()}")
+    del sampler, vae, img_lat
+    _free()
+    done(t0)
+    run.update(seconds=time.perf_counter() - t0, encode_s=enc_s,
+               encode_peak_gib=enc_peak / 2**30,
+               encode_peak_above_resident_gib=(enc_peak - resident) / 2**30)
+    return decode, run
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1609,13 +1894,15 @@ def main():
     hy, hy_turbo, fp8_ref = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
     hy_i2v = phase_hy_i2v_main_path()
-    wan_i2v = phase_wan_i2v_main_path()
+    wan_i2v, wan_i2v_plan = phase_wan_i2v_main_path()
     rel = phase_end_to_end()
     probes = phase_probes()
     phase_cli_tiny()
     hy_fp8 = phase_hy_fp8(fp8_ref, hy["peak_gib"])
     wan_dpm, wan_dpm_turbo = phase_wan_dpm()
     fid = phase_fidelity()
+    hy_vae, hy_i2v_vae = phase_hy_vae(hy.pop("latents"))
+    wan_vae, wan_i2v_vae = phase_wan_vae(wan.pop("latents"), wan_i2v_plan)
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -1630,7 +1917,9 @@ def main():
             "hyvideo_t2v_base_fp8": hy_fp8["launches"],
             "wan_t2v_1.3b_base_dpm": wan_dpm["launches"],
             "wan_t2v_1.3b_turbo_dpm": wan_dpm_turbo["launches"],
-            "fidelity_wan_1.3b_q8_vs_dense": fid["launches"]}
+            "fidelity_wan_1.3b_q8_vs_dense": fid["launches"],
+            "hyvideo_i2v_token_replace_vae": hy_i2v_vae["launches"],
+            "wan_i2v_14b_vae": wan_i2v_vae["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -1718,6 +2007,13 @@ def main():
         "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"],
                            rel["hy_i2v_tr_dense"], rel["wan_i2v_dense"]),
     }] + _probe_entries(probes, runs)}
+    vae = {name: {k: v for k, v in rec.items()
+                  if k not in ("launches", "step_s", "schedule")}
+           for name, rec in (("11_hy_decode", hy_vae),
+                             ("11b_hy_i2v_encode_run_decode", hy_i2v_vae),
+                             ("12_wan_decode", wan_vae),
+                             ("12b_wan_i2v_encode_run_decode", wan_i2v_vae))}
+    print("vae: " + json.dumps(vae))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

@@ -5,12 +5,14 @@ Runs the HunyuanVideo T2V and Wan2.1 T2V 1.3B Jenga-Base carving paths
 fixed-list and TeaCache step skipping) on an NVIDIA Hopper GPU. Attention
 runs on two hand-written sm_90a CUDA kernels, block-sparse
 (``csrc/block_sparse_attn.cu``) and dense (``csrc/dense_attn.cu``); every
-other op is plain PyTorch. The probe tools (``tools/``) time four more
-hand-written kernels (``csrc/attn_probe.cu``, ``csrc/block_pool.cu``,
+other op is plain PyTorch, among them the two video VAEs (``codec/``:
+HunyuanVideo's tiled causal 3-D VAE, Wan2.1's streamed frame by frame).
+The probe tools (``tools/``) time four more hand-written kernels
+(``csrc/attn_probe.cu``, ``csrc/block_pool.cu``,
 ``csrc/cross_attn_resident.cu``) that no main path runs. The numpy-only
-host modules (curves, skip schedules, option validation) are copies of
-the JAX package's, held equal to them by the tests: this package imports
-neither JAX nor ``jenga_tpu``.
+host modules (curves, skip schedules, option validation, video output)
+are copies of the JAX package's, held equal to them by the tests: this
+package imports neither JAX nor ``jenga_tpu``.
 """
 
 __version__ = "0.2.0"

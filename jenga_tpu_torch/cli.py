@@ -27,14 +27,23 @@ JAX CLI's ``--task`` defaults to t2v-1.3B whatever the preset says);
 stores the published model's large linear weights in e4m3; as in the JAX
 CLI it does not act on ``--tiny``.
 
-The port has no checkpoints, text encoders, image encoders or VAE yet:
-the DiT runs from a seeded random init on the device, the text states are
-zero embeddings (256 tokens for HunyuanVideo; 64 for Wan, padded to its
-``text_len``), the I2V conditioning is zeros (as in the JAX CLI's smoke
-mode), and the output is the final latents (.npy). For ``wan-i2v`` the
-would-be image is ``--video-size`` (default 832x480), and the latent size
-comes from its aspect under ``--max-area``; with ``--tiny`` and no
-``--video-size`` the latent is 16x16 over 9 frames, the JAX smoke shape.
+The port has no checkpoints, text encoders or image encoders yet: the DiT
+runs from a seeded random init on the device, the text states are zero
+embeddings (256 tokens for HunyuanVideo; 64 for Wan, padded to its
+``text_len``), and no command builds a VAE (the samplers take one as
+``vae=``, see ``runtime.py``; the CLI gets one with the checkpoints). So
+each command saves its final latents (.npy), as the JAX CLI does without a
+VAE in its checkpoint directory: the output rule is JAX's
+(``_save_output``), a [3, F, H, W] video through ``utils.video`` and
+anything else as .npy. ``hyvideo-i2v --i2v-image-path`` loads the image
+and, without ``--video-size``, buckets the video size by its aspect at
+``--i2v-resolution``; it encodes one conditioning latent per stage when the
+sampler has a VAE, else (here) takes zero latents with JAX's message.
+Without an image it needs ``--tiny``. ``wan-i2v`` runs on zero conditioning
+(its image path needs T5 and CLIP); the would-be image is ``--video-size``
+(default 832x480), and the latent size comes from its aspect under
+``--max-area``; with ``--tiny`` and no ``--video-size`` the latent is 16x16
+over 9 frames, the JAX smoke shape.
 """
 
 from __future__ import annotations
@@ -81,8 +90,7 @@ def _common(p: argparse.ArgumentParser):
                    help="tiny random model (smoke runs): bf16 with head "
                         "dim 128 on cuda, f32 with head dim 64 on cpu")
     p.add_argument("--latents-only", action="store_true",
-                   help="dump latents .npy (the only output until the VAE "
-                        "is ported)")
+                   help="skip the VAE decode and dump the latents (.npy)")
     p.add_argument("--save-path", type=str, default="output.npy")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
@@ -108,9 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(always on, as in the JAX CLI)")
     i.add_argument("--i2v-resolution", default="720p",
                    choices=["720p", "540p", "360p"],
-                   help="aspect-ratio bucket base for a conditioning image "
-                        "when --video-size is not given (takes effect with "
-                        "image input, which waits for the VAE)")
+                   help="aspect-ratio bucket base for the conditioning image "
+                        "when --video-size is not given")
+    i.add_argument("--i2v-image-path", type=str, default=None,
+                   help="the conditioning image (first frame)")
     _common(i)
     w = sub.add_parser("wan-t2v", help="Wan2.1 text-to-video")
     w.add_argument("--preset", default="1.3b-base",
@@ -162,13 +171,26 @@ def _tiny_wan_config(device: str, i2v: bool = False):
     return cfg
 
 
-def _save_latents(args, out, t0):
+def _save_output(path, out, latents_only=False):
+    """The JAX CLI's rule: ``.npy`` when ``latents_only`` or ``out`` is not
+    a [3, F, H, W] video, else ``utils.video.save_video`` (mp4, or gif
+    without an ffmpeg backend). Returns the path written."""
     import numpy as np
+    if latents_only or out.ndim != 4 or out.shape[0] != 3:
+        path = path.rsplit(".", 1)[0] + ".npy"
+        np.save(path, np.asarray(out))
+        print(f"saved latents to {path}")
+    else:
+        from .utils.video import save_video
+        path = save_video(path, np.asarray(out))
+        print(f"saved video to {path}")
+    return path
+
+
+def _save(args, out, t0):
     out = out.cpu()     # waits for the device
     print(json.dumps({"gen_time_s": round(time.time() - t0, 2)}))
-    path = args.save_path.rsplit(".", 1)[0] + ".npy"
-    np.save(path, out.numpy())
-    print(f"saved latents to {path}")
+    _save_output(args.save_path, out.numpy(), args.latents_only)
 
 
 def _hy_overrides(args) -> dict:
@@ -219,7 +241,8 @@ def run_hyvideo_t2v(args):
                                   use_fp8=args.use_fp8 and not args.tiny)
     text = _zero_hy_text(cfg, sampler.TEXT_LEN)
     t0 = time.time()
-    _save_latents(args, sampler.predict(*text, opts), t0)
+    _save(args, sampler.predict(*text, opts, decode=not args.latents_only),
+          t0)
 
 
 def hy_i2v_options(args):
@@ -232,22 +255,62 @@ def hy_i2v_options(args):
         i2v_stability=args.i2v_stability, **_hy_overrides(args))
 
 
-def run_hyvideo_i2v(args):
+def hy_i2v_bucket(image, resolution: str):
+    """The video size (W, H) of the aspect-ratio bucket closest to the
+    image's [3, H, W], at ``--i2v-resolution``'s base. The reference reads
+    a bucket as (h, w) (its ratio is the first over the second, matched to
+    H / W); the JAX CLI takes it as (w, h), which gives a landscape image a
+    portrait video."""
+    from .pipelines.hyvideo_i2v import (generate_crop_size_list,
+                                        get_closest_ratio)
+    bucket_base = {"720p": 960, "540p": 720, "360p": 480}[resolution]
+    buckets = generate_crop_size_list(bucket_base, 32)
+    ratios = [round(float(h) / float(w), 5) for h, w in buckets]
+    (h, w), _ = get_closest_ratio(image.shape[1], image.shape[2], ratios,
+                                  buckets)
+    return (w, h)
+
+
+def hy_i2v_image_latents(args, sampler, opts):
+    """(options, one conditioning latent per stage) by the JAX CLI's rule:
+    with ``--i2v-image-path`` the image, bucketed when ``--video-size`` is
+    absent, encoded at each stage's latent size if the sampler has a VAE,
+    else zero latents; without an image, zero latents."""
     import numpy as np
+    image = None
+    if args.i2v_image_path:
+        from .runtime import load_image
+        image = load_image(args.i2v_image_path)
+        if not args.video_size:
+            opts = dataclasses.replace(
+                opts, size=hy_i2v_bucket(image, args.i2v_resolution))
+    shapes = sampler.pipeline._stage_shapes(opts)
+    if image is not None and sampler.vae is not None:
+        return opts, [sampler.encode_image_latent(image, lat[1], lat[2])
+                      for lat, _ in shapes]
+    if image is not None:
+        print("no VAE in ckpt dir: zero conditioning latents (smoke mode)")
+    return opts, [np.zeros((16, 1, lat[1], lat[2]), np.float32)
+                  for lat, _ in shapes]
+
+
+def run_hyvideo_i2v(args):
     from .models.hyvideo import HUNYUAN_VIDEO_T2V, hy_i2v_config
     from .runtime import HunyuanVideoSampler
 
+    if not args.i2v_image_path and not args.tiny:
+        raise SystemExit("hyvideo-i2v requires --i2v-image-path (or --tiny "
+                         "for a smoke run)")
     opts = hy_i2v_options(args)
     base = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
     cfg = hy_i2v_config(opts.i2v_condition_type, base)
     sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed,
                                   i2v=True)
-    # no image encoder yet: zero conditioning latents, one per stage
-    image_latents = [np.zeros((16, 1, lat[1], lat[2]), np.float32)
-                     for lat, _ in sampler.pipeline._stage_shapes(opts)]
+    opts, image_latents = hy_i2v_image_latents(args, sampler, opts)
     text = _zero_hy_text(cfg, sampler.TEXT_LEN)
     t0 = time.time()
-    _save_latents(args, sampler.predict_i2v(image_latents, *text, opts), t0)
+    _save(args, sampler.predict_i2v(image_latents, *text, opts,
+                                    decode=not args.latents_only), t0)
 
 
 def wan_t2v_options(args):
@@ -304,7 +367,8 @@ def run_wan_t2v(args):
                                        device=args.device, seed=args.seed)
     ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
     t0 = time.time()
-    _save_latents(args, sampler.generate(ctx, np.zeros_like(ctx), opts), t0)
+    _save(args, sampler.generate(ctx, np.zeros_like(ctx), opts,
+                                 decode=not args.latents_only), t0)
 
 
 def wan_i2v_inputs(args):
@@ -350,15 +414,16 @@ def run_wan_i2v(args):
     else:
         sampler = WanSampler.from_task("i2v-14B", device=args.device,
                                        seed=args.seed)
-    # no VAE or CLIP tower yet: zero image latent and CLIP tokens
+    # no T5 or CLIP tower yet, so no image path: zero image latent and
+    # CLIP tokens
     t_lat = (frame_num - 1) // 4 + 1
     img_lat = np.zeros((16, t_lat, lat_h, lat_w), np.float32)
     clip_fea = np.zeros((257, CLIP_DIM), np.float32)
     ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
     t0 = time.time()
-    _save_latents(args, sampler.generate_i2v(
+    _save(args, sampler.generate_i2v(
         img_lat, clip_fea, ctx, np.zeros_like(ctx), frame_num, lat_h, lat_w,
-        opts), t0)
+        opts, decode=not args.latents_only), t0)
 
 
 def main(argv=None):

@@ -3,7 +3,9 @@
 ``hyvideo_params_from_jax(tree)`` and ``wan_params_from_jax(tree)`` take
 the nested dict/list tree of ``init_hyvideo_params`` / ``init_wan_params``
 (or a converted checkpoint) with numpy leaves and return a flat
-``{name: tensor}`` dict for ``HYVideoDiT`` / ``WanDiT.load_state_dict``.
+``{name: tensor}`` dict for ``HYVideoDiT`` / ``WanDiT.load_state_dict``;
+``hyvae_params_from_jax`` and ``wanvae_params_from_jax`` do the same for
+the VAEs (``codec.vae_hy.HYVAE`` / ``codec.vae_wan.WanVAE``).
 Names are the tree paths joined with dots; ``None`` leaves (Wan's
 parameterless head norm) are dropped. JAX ``linear`` weights are
 ``[in, out]``; the port's are torch-style ``[out, in]``, and this is the
@@ -18,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["hyvideo_params_from_jax", "wan_params_from_jax"]
+__all__ = ["hyvideo_params_from_jax", "wan_params_from_jax",
+           "hyvae_params_from_jax", "wanvae_params_from_jax"]
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -61,4 +64,20 @@ def wan_params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The Wan tree's ``head`` becomes the module ``head_layer``."""
     tree = dict(tree)
     tree["head_layer"] = tree.pop("head")
+    return hyvideo_params_from_jax(tree)
+
+
+def hyvae_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The HunyuanVideo VAE tree of ``init_hyvae_params``. Conv weights
+    keep their ``[O, I, kt, kh, kw]`` layout; the mid-block attention's
+    ``q/k/v/o.w`` are ``[in, out]`` in JAX and, being the tree's only 2-D
+    ``.w`` leaves, are transposed by the same rule as the DiT's linears."""
+    return hyvideo_params_from_jax(tree)
+
+
+def wanvae_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The Wan VAE tree of ``init_wanvae_params``. Every weight is a conv
+    and keeps its layout: ``[O, I, kt, kh, kw]``, or ``[O, I, kh, kw]`` for
+    the per-frame 2-D convs, among them the attention's ``qkv``/``proj``
+    (1x1, 4-D, so the 2-D rule never transposes them)."""
     return hyvideo_params_from_jax(tree)

@@ -94,8 +94,10 @@ class HYVideoI2VPipeline(HYVideoT2VPipeline):
     @torch.inference_mode()
     def generate_i2v(self, image_latents, text_states, text_mask,
                      text_states_2, opts: HYI2VOptions, negative=None,
-                     on_step=None, initial_latents=None, stage_noises=None):
-        """Run the denoise loop; returns the final latents [16, F, H, W].
+                     on_step=None, initial_latents=None, stage_noises=None,
+                     decode: bool = True):
+        """Run the denoise loop; returns the final latents [16, F, H, W], or
+        with a VAE attached and ``decode`` the video [3, F', H', W'].
 
         ``image_latents``: one clean [16, 1, h, w] latent per ProRes stage,
         at that stage's latent size (numpy or tensors). The text inputs,
@@ -135,9 +137,9 @@ class HYVideoI2VPipeline(HYVideoT2VPipeline):
             m[:, :, 0] = 1.0
             return torch.cat([latents, rep, m], dim=1)
 
-        return self._denoise(
+        return self._output(self._denoise(
             text_states, text_mask, text_states_2, opts,
             opts.scheduler_shift_list[0], negative, on_step,
             initial_latents, stage_noises, prepare=prepare,
             model_input=model_input if cond == "latent_concat" else None,
-            pin=pin)
+            pin=pin), decode)

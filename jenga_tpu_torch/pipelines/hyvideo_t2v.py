@@ -61,9 +61,19 @@ class HYVideoT2VPipeline:
 
     VAE_STRIDE = (4, 8, 8)  # the "884" causal VAE
 
-    def __init__(self, model: hy.HYVideoDiT):
+    def __init__(self, model: hy.HYVideoDiT, vae_decode=None):
+        """``vae_decode(latents)`` turns the final latents into the video
+        that ``generate`` returns (the sampler's ``decode_latents``)."""
         self.model = model
         self.cfg = model.cfg
+        self.vae_decode = vae_decode
+
+    def _output(self, latents, decode: bool):
+        """The decoded video when a VAE is attached and ``decode``, else
+        the latents."""
+        if decode and self.vae_decode is not None:
+            return self.vae_decode(latents)
+        return latents
 
     def _stage_shapes(self, opts: HYT2VOptions):
         """Latent shape and token grid per stage."""
@@ -91,8 +101,10 @@ class HYVideoT2VPipeline:
     @torch.inference_mode()
     def generate(self, text_states, text_mask, text_states_2,
                  opts: HYT2VOptions, negative=None, on_step=None,
-                 initial_latents=None, stage_noises=None):
-        """Run the denoise loop; returns the final latents [C, F, H, W] f32.
+                 initial_latents=None, stage_noises=None,
+                 decode: bool = True):
+        """Run the denoise loop; returns the final latents [C, F, H, W] f32,
+        or with a VAE attached and ``decode`` the video [3, F', H', W'].
 
         ``text_states`` [L, 4096], ``text_mask`` [L], ``text_states_2``
         [768] (numpy or tensors); ``negative`` an optional matching triple
@@ -104,9 +116,9 @@ class HYVideoT2VPipeline:
         validate_hy_options(opts)
         # the first schedule uses flow_shift; scheduler_shift_list only
         # drives the re-shifts at ProRes switches
-        return self._denoise(text_states, text_mask, text_states_2, opts,
-                             opts.flow_shift, negative, on_step,
-                             initial_latents, stage_noises)
+        return self._output(self._denoise(
+            text_states, text_mask, text_states_2, opts, opts.flow_shift,
+            negative, on_step, initial_latents, stage_noises), decode)
 
     def _denoise(self, text_states, text_mask, text_states_2, opts, shift0,
                  negative, on_step, initial_latents, stage_noises,

@@ -87,10 +87,11 @@ def carving_fidelity_report(pipeline, inputs, carving_opts,
     pipeline's positional inputs before the options: ``(context,
     context_null)`` for Wan T2V, ``(text_states, text_mask,
     text_states_2)`` for HunyuanVideo, and for the I2V pipelines the
-    leading arguments of ``generate_i2v``. (The JAX function's
+    leading arguments of ``generate_i2v``. Both arms stay in latent space
+    (``decode=False``), as in the JAX harness. (The JAX function's
     ``make_opts`` and ``sample_steps`` are unused there and not taken.)"""
     gen = (pipeline.generate_i2v if hasattr(pipeline, "generate_i2v")
            else pipeline.generate)
-    carved = gen(*inputs, carving_opts)
-    dense = gen(*inputs, dense_opts)
+    carved = gen(*inputs, carving_opts, decode=False)
+    dense = gen(*inputs, dense_opts, decode=False)
     return fidelity_row(carved, dense)

@@ -72,9 +72,10 @@ class WanI2VPipeline(WanT2VPipeline):
     def generate_i2v(self, image_latent, clip_fea, context, context_null,
                      frame_num: int, lat_h: int, lat_w: int,
                      opts: WanI2VOptions, on_step=None,
-                     initial_latents=None):
+                     initial_latents=None, decode: bool = True):
         """Run the denoise loop; returns the final latents [16, T_lat,
-        lat_h, lat_w] f32.
+        lat_h, lat_w] f32, or with a VAE attached and ``decode`` the video
+        [3, frame_num, 8 lat_h, 8 lat_w].
 
         ``image_latent`` [16, T_lat, lat_h, lat_w] is the VAE encoding of
         the first frame followed by zero frames; ``clip_fea`` [257, 1280]
@@ -107,7 +108,8 @@ class WanI2VPipeline(WanT2VPipeline):
         y = torch.cat([msk, torch.as_tensor(image_latent, dtype=torch.float32,
                                             device=dev)])
         clip = torch.as_tensor(clip_fea, dtype=torch.float32, device=dev)
-        return self._denoise(
+        return self._output(self._denoise(
             kinds, latents, self._context2(context, context_null),
             [self._carve(shape, opts)], opts, on_step,
-            y=torch.stack([y, y]), clip_fea=torch.stack([clip, clip]))
+            y=torch.stack([y, y]), clip_fea=torch.stack([clip, clip])),
+            decode)

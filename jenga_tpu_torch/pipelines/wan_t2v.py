@@ -88,13 +88,22 @@ class WanT2VPipeline:
     VAE_STRIDE = (4, 8, 8)
 
     def __init__(self, model: wan_lib.WanDiT,
-                 model_id: str = "wan-t2v-1.3b"):
+                 model_id: str = "wan-t2v-1.3b", vae_decode=None):
         """``model_id`` names the checkpoint whose TeaCache polynomial the
         skip schedule uses (``TEACACHE_COEFFS``; an unknown id takes the
-        1.3B one, as in the JAX package)."""
+        1.3B one, as in the JAX package); ``vae_decode(latents)`` turns the
+        final latents into the video that ``generate`` returns."""
         self.model = model
         self.cfg = model.cfg
         self.model_id = model_id
+        self.vae_decode = vae_decode
+
+    def _output(self, latents, decode: bool):
+        """The decoded video when a VAE is attached and ``decode``, else
+        the latents."""
+        if decode and self.vae_decode is not None:
+            return self.vae_decode(latents)
+        return latents
 
     def _latent_shape(self, opts: WanT2VOptions):
         w, h = opts.size
@@ -215,8 +224,10 @@ class WanT2VPipeline:
 
     @torch.inference_mode()
     def generate(self, context, context_null, opts: WanT2VOptions,
-                 on_step=None, initial_latents=None, stage2_noise=None):
-        """Run the denoise loop; returns the final latents [C, F, H, W] f32.
+                 on_step=None, initial_latents=None, stage2_noise=None,
+                 decode: bool = True):
+        """Run the denoise loop; returns the final latents [C, F, H, W] f32,
+        or with a VAE attached and ``decode`` the video [3, F', H', W'].
 
         ``context`` / ``context_null`` are encoded prompts [L, text_dim]
         (unpadded; numpy or tensors). ``on_step(i, latents)`` is called
@@ -242,8 +253,8 @@ class WanT2VPipeline:
                 noise2 = torch.randn((1, *shapes[1]), generator=gen,
                                      device=dev)
         carves = [self._carve(shape, opts) for shape in shapes]
-        return self._denoise(kinds, latents, self._context2(
-            context, context_null), carves, opts, on_step, noise2)
+        return self._output(self._denoise(kinds, latents, self._context2(
+            context, context_null), carves, opts, on_step, noise2), decode)
 
     def _denoise(self, kinds, latents, ctx2, carves, opts, on_step,
                  noise2=None, **cond):

@@ -6,6 +6,8 @@
     python -m jenga_tpu_torch.profile_step --model hyvideo-i2v
     python -m jenga_tpu_torch.profile_step --model wan-i2v
     python -m jenga_tpu_torch.profile_step --use-fp8
+    python -m jenga_tpu_torch.profile_step --model hy-vae
+    python -m jenga_tpu_torch.profile_step --model wan-vae
 
 ``--model hyvideo`` (default) builds the full HunyuanVideo T2V DiT and,
 for each video length at --video-size (default 1280x720), profiles one
@@ -24,6 +26,18 @@ and conditioning ``y``. Weights are a seeded random init on the card;
 ``--use-fp8`` (``--model hyvideo`` only) quantizes the large linear
 weights to e4m3 as ``hyvideo-t2v --use-fp8`` does, so the dequant of each
 weight before its product lands in "other".
+``--model hy-vae`` profiles one decode of the HunyuanVideo VAE
+(``HYVAE_884_16C``, seeded init, f32 with cuDNN's default TF32 convs) at
+1280x720x125f (latent 16x32x90x160: 3 temporal x 28 spatial tiles);
+``--model wan-vae`` one streamed decode of the Wan VAE at 832x480x81f and
+at 1280x720x81f and one I2V image encode at 1280x720x81f (the first frame
+and 80 zero frames). Each goes through a sampler's ``decode_latents`` /
+``encode_image_latent`` (the DiT is the tiny bf16 one: only the VAE
+runs): one warm-up at a short clip, one run timed with CUDA events (and
+its peak memory), one with CUDA-event marks around each class's calls
+for the device time by class (conv, norm, attention, copies, other) and
+the convs' FLOPs (2 x multiply-adds from their shapes), and one under
+torch.profiler for the device's idle share.
 For each step:
 
   * the trunk's time (CUDA events; one warm-up run, then --reps runs),
@@ -40,11 +54,13 @@ Prints one JSON line per step (and writes them to --out).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import subprocess
 import time
+from unittest import mock
 
 import torch
 
@@ -193,10 +209,182 @@ def profile_wan(sampler, size, frame_num, reps):
     return rows
 
 
+class _ClassMarks:
+    """Device ms by class from CUDA events recorded on the stream where
+    each class's call starts and ends: the interval between two marks goes
+    to the innermost class open there ("other" outside all). On one stream
+    the intervals add up to the span of the run. (The profiler's link from
+    a kernel to the op that launched it reuses correlation ids at this
+    many events, so it attributes kernels to several ops.)"""
+
+    def __init__(self):
+        self.marks = []         # (event, class pushed, or None: pop)
+        self.conv_flop = 0      # multiply-adds x 2 of the marked convs
+
+    def _mark(self, cls):
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record()
+        self.marks.append((evt, cls))
+
+    def wrap(self, fn, cls):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            self._mark(cls)
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._mark(None)
+        return run
+
+    def count_conv(self, conv3d):
+        @functools.wraps(conv3d)
+        def run(x, w, *a, **kw):
+            out = conv3d(x, w, *a, **kw)
+            self.conv_flop += 2 * out.numel() * w[0].numel()
+            return out
+        return run
+
+    def breakdown(self) -> dict:
+        torch.cuda.synchronize()
+        out = dict.fromkeys(_VAE_CLASSES, 0.0)
+        stack = []
+        for (evt, cls), (nxt, _) in zip(self.marks, self.marks[1:]):
+            if cls is None:
+                stack.pop()
+            else:
+                stack.append(cls)
+            out[stack[-1] if stack else "other"] += evt.elapsed_time(nxt)
+        return out
+
+
+_VAE_CLASSES = ("conv", "norm", "attention", "copies", "other")
+
+
+@contextlib.contextmanager
+def _vae_class_marks():
+    """The VAEs' convs, norms, attentions and copies (padding,
+    concatenation, the nearest repeat, the carried frames) wrapped in
+    class marks; yields the ``_ClassMarks``."""
+    from .codec import vae_hy, vae_wan
+    marks = _ClassMarks()
+    patches = [(vae_hy, "group_norm", "norm"),
+               (vae_hy, "_mid_attention", "attention"),
+               (vae_wan, "_rms_norm", "norm"),
+               (vae_wan, "_attention", "attention"),
+               (torch.nn.functional, "conv3d", "conv"),
+               (torch.nn.functional, "pad", "copies"),
+               (torch, "cat", "copies"),
+               (torch.Tensor, "repeat_interleave", "copies"),
+               (torch.Tensor, "clone", "copies")]
+    with contextlib.ExitStack() as stack:
+        for owner, name, cls in patches:
+            fn = getattr(owner, name)
+            if cls == "conv":
+                fn = marks.count_conv(fn)
+            stack.enter_context(mock.patch.object(
+                owner, name, marks.wrap(fn, cls)))
+        yield marks
+
+
+def _busy_ms(prof) -> float:
+    """The union of the device events' intervals, ms."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return (busy + (cur[1] - cur[0] if cur else 0.0)) / 1e3
+
+
+def _profile_vae(run, warmup, dev) -> dict:
+    """``warmup()``; ``run()`` timed with CUDA events (and its peak
+    memory); ``run()`` with the class marks; ``run()`` under the profiler
+    for the device's idle share."""
+    warmup()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run()
+    end.record()
+    end.synchronize()
+    shape = list(out.shape)
+    del out
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with _vae_class_marks() as marks:
+        run()
+    by_class = marks.breakdown()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"output": shape, "ms": ms, "device_ms_by_class": by_class,
+            "marked_ms": sum(by_class.values()),
+            "conv_tflop": marks.conv_flop / 1e12,
+            "conv_tflop_per_s": marks.conv_flop / by_class["conv"] / 1e9,
+            "profiled_wall_ms": wall_ms,
+            "device_idle_share": 1.0 - _busy_ms(prof) / wall_ms,
+            "peak_gib": peak / 2**30,
+            "peak_above_resident_gib": (peak - resident) / 2**30}
+
+
+@torch.inference_mode()
+def profile_vae(model: str, dev) -> list:
+    """The VAE rows of ``--model hy-vae`` / ``wan-vae``."""
+    from .cli import _tiny_config, _tiny_wan_config
+    from .codec import vae_hy, vae_wan
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    if model == "hy-vae":
+        vae = vae_hy.init_hyvae_(vae_hy.HYVAE(vae_hy.HYVAE_884_16C,
+                                              device=dev), gen)
+        sampler = HunyuanVideoSampler(_tiny_config("cuda"), device=dev,
+                                      vae=vae)
+        z = torch.randn((16, 32, 90, 160), generator=gen, device=dev)
+        row = {"model": "hy-vae", "step": "decode", "size": [1280, 720],
+               "video_length": 125, "latent": list(z.shape)}
+        row.update(_profile_vae(lambda: sampler.decode_latents(z),
+                                lambda: sampler.decode_latents(z[:, :9]),
+                                dev))
+        return [row]
+    vae = vae_wan.init_wanvae_(vae_wan.WanVAE(vae_wan.WAN_VAE_16Z,
+                                              device=dev), gen)
+    sampler = WanSampler(_tiny_wan_config("cuda"), device=dev, vae=vae)
+    for (w, h) in ((832, 480), (1280, 720)):
+        z = torch.randn((16, 21, h // 8, w // 8), generator=gen, device=dev)
+        row = {"model": "wan-vae", "step": "decode", "size": [w, h],
+               "video_length": 81, "latent": list(z.shape)}
+        row.update(_profile_vae(lambda: sampler.decode_latents(z),
+                                lambda: sampler.decode_latents(z[:, :2]),
+                                dev))
+        rows.append(row)
+    img = torch.rand((3, 720, 1280), generator=gen, device=dev)
+    row = {"model": "wan-vae", "step": "i2v_encode", "size": [1280, 720],
+           "video_length": 81}
+    row.update(_profile_vae(
+        lambda: sampler.encode_image_latent(img, 81, 90, 160),
+        lambda: sampler.encode_image_latent(img, 5, 90, 160), dev))
+    rows.append(row)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("jenga_tpu_torch.profile_step")
     ap.add_argument("--model", default="hyvideo",
-                    choices=["hyvideo", "wan", "hyvideo-i2v", "wan-i2v"])
+                    choices=["hyvideo", "wan", "hyvideo-i2v", "wan-i2v",
+                             "hy-vae", "wan-vae"])
     ap.add_argument("--video-size", type=int, nargs=2, default=None,
                     metavar=("W", "H"))
     ap.add_argument("--video-length", type=int, nargs="+", default=None)
@@ -210,6 +398,15 @@ def main(argv=None):
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    if args.model.endswith("-vae"):
+        rows = profile_vae(args.model, torch.device("cuda"))
+        for row in rows:
+            row["gpu"] = gpu
+            print(json.dumps(row), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+        return
     if args.model == "wan":
         sampler = WanSampler(WAN_T2V_1_3B, device="cuda")
         run, size, lengths = profile_wan, (832, 480), [81]

@@ -126,7 +126,8 @@ def _wan_suite(name, device, quick):
                 "per_row": dataclasses.replace(q8, q_group=1,
                                                joint_sel=False)}
         rows = _three_rows(desc)
-    return Suite(name, sampler, lambda o: sampler.generate(ctx, null, o),
+    return Suite(name, sampler,
+                 lambda o: sampler.generate(ctx, null, o, decode=False),
                  arms, rows)
 
 
@@ -166,7 +167,8 @@ def _hy_suite(name, device, quick):
                                device)
 
         def run_arm(o):
-            return sampler.predict_i2v([img_lat], txt, mask, txt2, o)
+            return sampler.predict_i2v([img_lat], txt, mask, txt2, o,
+                                       decode=False)
         desc = (f"hy-i2v token_replace(3072x24h, 2+4 trunk) {size[0]}x"
                 f"{size[1]}x{frames}f {steps} steps full-res stage, drop "
                 ".75/.85 p_remain .3, fixed skips, i2v_stability, port "
@@ -181,7 +183,7 @@ def _hy_suite(name, device, quick):
             q_group=8, joint_sel=True, seed=7)
 
         def run_arm(o):
-            return sampler.predict(txt, mask, txt2, o)
+            return sampler.predict(txt, mask, txt2, o, decode=False)
         desc = (f"hy-arch(3072x24h, 2+4 trunk) turbo {size[0]}x{size[1]}x"
                 f"{frames}f {steps} steps, stages res .75(text_amp on)/1.0, "
                 "drop .7/.8 p_remain .3, fixed skips, port seeded init, "

@@ -72,3 +72,27 @@ def rel_err(a, b) -> float:
 
 def t(x, dtype=None):
     return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+
+def np_vae_tree(init, cfg, seed):
+    """A numpy tree of the VAE init ``init(key, cfg)``'s layout
+    (``jax.eval_shape``, so nothing of the JAX init runs): weights
+    U(+-1/sqrt(fan_in)) (the ``[in, out]`` attention linears: fan_in =
+    rows), biases and norm shifts N(0, 0.1), norm scales and gains 1 +
+    N(0, 0.1), so every leaf reaches the output (the JAX init zeroes the
+    biases and Wan's attention projection)."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: init(k, cfg), jax.random.PRNGKey(0))
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        lin = "'attn']" in name and s.ndim == 2
+        if name.endswith("['w']") and s.ndim > 1:
+            fan = s.shape[0] if lin else int(np.prod(s.shape[1:]))
+            return (rng.uniform(-1, 1, s.shape) / np.sqrt(fan)).astype(
+                np.float32)
+        if name.endswith("['b']"):
+            return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        return (1 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)

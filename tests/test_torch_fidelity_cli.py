@@ -84,11 +84,12 @@ class _JaxDraw:
     def __init__(self, pipe):
         self.pipe = pipe
 
-    def generate(self, context, context_null, opts):
+    def generate(self, context, context_null, opts, decode=True):
         k0, _ = jax.random.split(jax.random.PRNGKey(opts.seed))
         lat0 = jax.random.normal(k0, (1, *self.pipe._latent_shape(opts)))
         return self.pipe.generate(context, context_null, opts,
-                                  initial_latents=np.array(lat0)[0])
+                                  initial_latents=np.array(lat0)[0],
+                                  decode=decode)
 
 
 def test_carving_fidelity_report_matches_jax():

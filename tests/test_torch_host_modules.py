@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy host modules (curves,
-skip schedules, option validation) against the originals, and the rule
-that no module of the port imports ``jenga_tpu`` or JAX.
+skip schedules, option validation, video output) against the originals,
+and the rule that no module of the port imports ``jenga_tpu`` or JAX.
 
 Curve orders, block adjacency and skip schedules must stay index for
 index equal to ``jenga_tpu``'s: fidelity against JAX depends on it.
@@ -30,7 +30,7 @@ from jenga_tpu_torch.diffusion import skip as pt_skip
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = ["curves/gilbert.py", "curves/blocks.py", "diffusion/skip.py",
-          "configs/validate.py"]
+          "configs/validate.py", "utils/video.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

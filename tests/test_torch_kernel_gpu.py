@@ -1,8 +1,9 @@
 """The CUDA kernels (block-sparse attention in its all-member and
 membership modes, dense attention, and the probe kernels P1-P4) against
 their plain torch versions, the HunyuanVideo token_replace pinning, the
-fp8 ``linear``, and the CLI's ``--tiny`` runs (T2V and I2V, dpm++), on a
-CUDA card (skipped without one). This file imports no JAX, so it also runs on a
+fp8 ``linear``, the CLI's ``--tiny`` runs (T2V and I2V, dpm++), and the
+VAEs, the image encode and the resize against the CPU, on a CUDA card
+(skipped without one). This file imports no JAX, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
@@ -460,3 +461,96 @@ def test_fp8_linear_on_card(cuda_device, dtype):
     torch.testing.assert_close(linear(mod, x),
                                torch.nn.functional.linear(x, w, mod.b),
                                rtol=0, atol=0)
+
+
+# the CPU tests' small VAE configs (tests/test_torch_vae.py); cuDNN runs
+# the f32 convs in TF32 (PyTorch's default), ~1e-3 relative a conv
+HY_VAE_SMALL = dict(block_out_channels=(8, 16, 16, 16), norm_num_groups=4,
+                    layers_per_block=1, sample_tsize=16, sample_size=32)
+VAE_TF32_TOL = 2e-2
+
+
+def _rel_l2(got, want):
+    got, want = got.cpu().double(), want.cpu().double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _small_vaes():
+    from jenga_tpu_torch.codec import vae_hy, vae_wan
+    gen = torch.Generator().manual_seed(0)
+    hy = vae_hy.init_hyvae_(vae_hy.HYVAE(vae_hy.HYVAEConfig(**HY_VAE_SMALL)),
+                            gen)
+    wan = vae_wan.init_wanvae_(vae_wan.WanVAE(vae_wan.WanVAEConfig(dim=8)),
+                               gen)
+    with torch.no_grad():   # the zero-initialised attention projections
+        for attn in (wan.encoder.mid.attn, wan.decoder.mid.attn):
+            attn.proj.w.normal_(0.0, 0.2, generator=gen)
+    return hy, wan
+
+
+@pytest.mark.gpu
+def test_hy_vae_tiled_decode_on_card_matches_cpu(cuda_device):
+    """The small HY config decodes a 5x5x5 latent (2 temporal x 2x2 spatial
+    tiles, both blends) on the card as on the CPU, within the TF32
+    bound."""
+    from jenga_tpu_torch.codec.vae_hy import vae_decode_tiled
+    hy, _ = _small_vaes()
+    z = torch.randn((1, 16, 5, 5, 5), generator=torch.Generator()
+                    .manual_seed(1))
+    want = vae_decode_tiled(hy, z)
+    got = vae_decode_tiled(hy.to(cuda_device), z.to(cuda_device))
+    assert got.shape == want.shape == (1, 3, 17, 40, 40)
+    assert _rel_l2(got, want) <= VAE_TF32_TOL
+
+
+@pytest.mark.gpu
+def test_wan_vae_streamed_on_card_matches_cpu(cuda_device):
+    """The small Wan config's streamed decode of a 4-frame latent and
+    encode of 9 frames on the card as on the CPU, within the TF32
+    bound."""
+    from jenga_tpu_torch.codec.vae_wan import wanvae_decode, wanvae_encode
+    _, wan = _small_vaes()
+    gen = torch.Generator().manual_seed(2)
+    z = torch.randn((1, 16, 4, 6, 8), generator=gen)
+    x = torch.rand((1, 3, 9, 48, 64), generator=gen) * 2 - 1
+    want = wanvae_decode(wan, z), wanvae_encode(wan, x)
+    wan.to(cuda_device)
+    got = (wanvae_decode(wan, z.to(cuda_device)),
+           wanvae_encode(wan, x.to(cuda_device)))
+    assert got[0].shape == want[0].shape == (1, 3, 13, 48, 64)
+    assert got[1].shape == want[1].shape == (1, 16, 3, 6, 8)
+    assert max(_rel_l2(g, w) for g, w in zip(got, want)) <= VAE_TF32_TOL
+
+
+@pytest.mark.gpu
+def test_encode_image_latent_on_card(cuda_device):
+    """Both samplers' ``encode_image_latent`` on the card (tiny bf16 DiTs,
+    the small f32 VAEs): the I2V latent shapes, finite, as on the CPU
+    within the TF32 bound."""
+    from jenga_tpu_torch.cli import _tiny_config, _tiny_wan_config
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler, WanSampler
+    hy, wan = _small_vaes()
+    img = torch.rand((3, 70, 90), generator=torch.Generator().manual_seed(3))
+    cases = ((HunyuanVideoSampler, _tiny_config, hy, (8, 12), (16, 1, 8, 12)),
+             (WanSampler, _tiny_wan_config, wan, (9, 4, 6), (16, 3, 4, 6)))
+    for cls, config, vae, args, shape in cases:
+        want = cls(config("cpu"), device="cpu", vae=vae).encode_image_latent(
+            img, *args)
+        got = cls(config("cuda"), device=cuda_device,
+                  vae=vae.to(cuda_device)).encode_image_latent(img, *args)
+        assert got.device.type == "cuda" and tuple(got.shape) == shape
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= VAE_TF32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [((333, 777), (256, 512)),
+                                     ((100, 60), (256, 128))])
+def test_resize_on_card_matches_cpu(cuda_device, src, dst):
+    """The antialiased bicubic resize on the card as on the CPU, within
+    1e-5 absolute on a [0, 1] image."""
+    from jenga_tpu_torch.runtime import _resize_chw
+    img = torch.rand((3, *src), generator=torch.Generator().manual_seed(4))
+    got = _resize_chw(img, *dst, cuda_device)
+    assert got.device.type == "cuda"
+    assert (got.cpu() - _resize_chw(img, *dst, "cpu")).abs().max() <= 1e-5
