@@ -157,6 +157,35 @@ result line):
      launches as there, decoded by the pipeline to [3, 81, 480, 832].
      Phases 11-12b print their seconds, peak memory and the card's name
      and power limit, and a ``vae:`` line gathers them.
+  13. (after 11b, on its sampler) HunyuanVideo's encoders at published
+     width, seeded on the card in f32 (the dtype from_pretrained loads):
+     the llava LM (LlamaConfig: 4096 wide, 32 layers, GQA 8, vocab
+     128320), its CLIP-L-336 tower and projector, and CLIP-L text, after
+     a memory plan beside the resident sampler; a stand-in tokenizer in
+     the sampler's slot (the card machine has no transformers: words to
+     seeded ids, "\n\n" to 271, <image> to 128257); encode_prompt (351
+     ids -> [256, 4096] and pooled [768]) and encode_prompt_i2v on the
+     720x1280 image (934 spliced tokens), finite and not constant; 4
+     token_replace steps on those states (K1 60 x computed steps, frame 0
+     bit-exact); whether a 1280x720x125f step fits beside the encoders;
+  14. (after 12b, on its sampler) UMT5-XXL and the CLIP-H tower seeded on
+     the card in f32; T5 on the prompt (trimmed) and CLIP on a seeded
+     480x832 image ([257, 1280]); generate_image(image, prompt, opts)
+     with phase 4e's options and plan to a decoded [3, 81, H, W] video,
+     launches as in 4e;
+  15. the smoke writes small-config checkpoint directories in the
+     reference's layout to a temp dir (torch.save and its own
+     safetensors writer: a deepspeed .pt, fp8 + scale map, vae/, a
+     sharded safetensors llava with its index and config.json, a CLIP
+     safetensors, Wan's sharded diffusion safetensors, VAE, T5 and CLIP
+     .pth, a kohya LoRA), patches the published configs to those small
+     ones and loads them with from_pretrained on the card and on the CPU:
+     HunyuanVideo plain, use_fp8, lora_path and use_cpu_offload, Wan I2V
+     plain and t5_on_host. Every module tensor bit-equal, placement as
+     asked, each encoder output card vs CPU within 2e-2 relative L2, and
+     a prompt through the encoders, 2 steps and the VAE to a video.
+     Phases 13-15 print their seconds, peak memory and the card's name
+     and power limit, and a ``prompt:`` line gathers them.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -1112,28 +1141,30 @@ def phase_wan_i2v_main_path():
     clip = torch.randn((257, CLIP_DIM), generator=gen, device="cuda")
     ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
     null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
-    out = _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
-                       (16, 21, lat_h, lat_w))
+    out = _wan_i2v_run(
+        sampler, opts, kinds,
+        lambda **kw: sampler.generate_i2v(img_lat, clip, ctx, null, frames,
+                                          lat_h, lat_w, opts, **kw),
+        (16, 21, lat_h, lat_w))
     del sampler
     _free()
     done(t0)
     return out, (opts, kinds)
 
 
-def _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
-                 expect_shape, decode=False):
-    """One Wan2.1-I2V generation at 832x480x81f with launch counts and
-    the list density; checks the latents (with ``decode``, the video the
-    sampler's VAE decodes them to) and the counts against the plan."""
+def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape,
+                 decode=False):
+    """One Wan2.1-I2V generation at 832x480x81f, ``generate(on_step=,
+    decode=)``, with launch counts and the list density; checks the
+    latents (with ``decode``, the video the sampler's VAE decodes them to)
+    and the counts against the plan."""
     import torch
     cfg = sampler.cfg
-    lat_h, lat_w, frames = 60, 104, 81
     calls = []
     torch.cuda.reset_peak_memory_stats()
     timer = _StepTimer()
     with _recorded_sparse_calls(calls), _Launches() as run:
-        out = sampler.generate_i2v(img_lat, clip, ctx, null, frames, lat_h,
-                                   lat_w, opts, on_step=timer, decode=decode)
+        out = generate(on_step=timer, decode=decode)
         torch.cuda.synchronize()
     decode_s = time.perf_counter() - timer.last
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1782,12 +1813,13 @@ def phase_hy_vae(base_latents):
     run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
                       (3, 33, 720, 1280), decode=True)
     print(f"   gpu: {gpu_line()}")
-    del sampler, vae, img_lats
-    _free()
     done(t0)
     run.update(seconds=time.perf_counter() - t0, encode_s=enc_s,
                encode_peak_gib=enc_peak)
-    return decode, run
+    prompt = phase_hy_prompt(sampler, img, img_lats, gen)
+    del sampler, vae, img_lats
+    _free()
+    return decode, run, prompt
 
 
 def phase_wan_vae(base_latents, i2v_plan):
@@ -1858,23 +1890,938 @@ def phase_wan_vae(base_latents, i2v_plan):
           f"20); peak memory {enc_peak / 2**30:.2f} GiB, "
           f"{(enc_peak - resident) / 2**30:.2f} GiB above the resident "
           f"sampler; latent mean|x| {img_lat.abs().mean().item():.6f}")
-    print(f"   schedule {kinds} (phase 4e's); clip_fea is zeros until the "
-          f"CLIP image tower is ported; the text is seeded noise")
+    print(f"   schedule {kinds} (phase 4e's); clip_fea is zeros and the "
+          f"text seeded noise (phase 14 runs T5 and the CLIP tower)")
     clip = torch.zeros((257, CLIP_DIM), device="cuda")
     ctx = torch.randn((64, sampler.cfg.text_dim), generator=gen,
                       device="cuda")
     null = torch.randn((64, sampler.cfg.text_dim), generator=gen,
                        device="cuda")
-    run = _wan_i2v_run(sampler, opts, kinds, img_lat, clip, ctx, null,
-                       (3, 81, 480, 832), decode=True)
+    run = _wan_i2v_run(
+        sampler, opts, kinds,
+        lambda **kw: sampler.generate_i2v(img_lat, clip, ctx, null, 81, 60,
+                                          104, opts, **kw),
+        (3, 81, 480, 832), decode=True)
     print(f"   gpu: {gpu_line()}")
-    del sampler, vae, img_lat
-    _free()
+    del img_lat
     done(t0)
     run.update(seconds=time.perf_counter() - t0, encode_s=enc_s,
                encode_peak_gib=enc_peak / 2**30,
                encode_peak_above_resident_gib=(enc_peak - resident) / 2**30)
-    return decode, run
+    prompt = phase_wan_prompt(sampler, opts, kinds, gen)
+    del sampler, vae
+    _free()
+    return decode, run, prompt
+
+
+# ------------------------------------------------- phases 13-15: encoders
+
+PROMPT = ("A cat walks on the grass, realistic style, soft evening light, "
+          "the camera follows it slowly")
+ENC_TOL = 2e-2      # card vs CPU relative L2 of an encoder output (TF32 off)
+
+
+class StandInTokenizer:
+    """A stand-in for the HF tokenizer in a sampler's tokenizer slot (the
+    card machine has no ``transformers``): words to seeded ids, "\\n\\n" to
+    271 (llama-3's, which the I2V crop anchors on), ``<image>`` to a fixed
+    id, optional BOS/EOS around the text (CLIP's), padded with 0 to
+    ``max_length``. ``.tok.convert_tokens_to_ids`` answers for
+    ``<image>``."""
+
+    def __init__(self, vocab_size, max_length, image_id=None, bos=None,
+                 eos=None):
+        self.vocab_size, self.max_length = vocab_size, max_length
+        self.image_id, self.bos, self.eos = image_id, bos, eos
+        self.tok = self
+
+    def convert_tokens_to_ids(self, token):
+        return self.image_id if token == "<image>" else None
+
+    def _id(self, word):
+        import zlib
+        if word == "\n\n":
+            return 271
+        if word == "<image>":
+            return self.image_id
+        # words land in [300, min(vocab, 128000) - 20): clear of 271 and
+        # of the image, BOS and EOS ids of every vocabulary used here
+        lo, hi = 300, min(self.vocab_size, 128000) - 20
+        return lo + zlib.crc32(word.encode()) % (hi - lo)
+
+    def __call__(self, texts, max_length=None):
+        import numpy as np
+        n = max_length or self.max_length
+        texts = texts if isinstance(texts, list) else [texts]
+        ids = np.zeros((len(texts), n), np.int64)
+        mask = np.zeros((len(texts), n), np.int64)
+        for i, text in enumerate(texts):
+            row = [self._id(w) for w in
+                   re.findall(r"\n\n|<image>|\n|[^\s]+", text)]
+            row = ([self.bos] if self.bos is not None else []) + row + (
+                [self.eos] if self.eos is not None else [])
+            row = row[:n]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return ids, mask
+
+
+def _rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _check_states(name, x, shape):
+    """A published-width encoder output: the shape, finite, not constant."""
+    import torch
+    if tuple(x.shape) != shape:
+        fail(f"{name}: shape {tuple(x.shape)} != {shape}")
+    if not torch.isfinite(x).all() or x.float().std().item() == 0.0:
+        fail(f"{name}: not finite, or constant")
+    print(f"   {name}: {tuple(x.shape)} {x.dtype}, std "
+          f"{x.float().std().item():.6f}")
+
+
+def _params_gib(*modules):
+    return sum(p.numel() * p.element_size() for m in modules
+               for p in m.parameters()) / 2**30
+
+
+def phase_hy_prompt(sampler, img, img_lats, gen):
+    """Phase 13 on phase 11b's HunyuanVideo-I2V token_replace sampler (VAE
+    attached): the llava LM (LlamaConfig's 4096 x 32, GQA 8), its CLIP-L
+    336 tower and projector, and CLIP-L text, seeded on the card in f32
+    (the dtype from_pretrained loads), encode_prompt (351 ids) and
+    encode_prompt_i2v on the 720x1280 image (934 spliced tokens), then 4
+    token_replace steps on those states; then whether a 125f step fits
+    beside the resident encoders."""
+    import numpy as np
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_i2v_options
+    from jenga_tpu_torch.text.clip import (CLIP_L_TEXT, CLIP_L_VISION_336,
+                                          CLIPText, init_clip_text_)
+    from jenga_tpu_torch.text.llama import LlamaConfig
+    from jenga_tpu_torch.text.llava import (I2V_TEMPLATE_INFO, Llava,
+                                           init_llava_)
+    t0 = phase("13. HunyuanVideo prompt path at published widths: llava "
+               "(f32) + CLIP-L text beside the HY-I2V sampler, encode, 4 "
+               "steps")
+    lcfg = LlamaConfig()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    n_llava = (lcfg.vocab_size * lcfg.hidden_size + lcfg.num_layers * (
+        2 * lcfg.hidden_size ** 2 + 2 * lcfg.hidden_size * lcfg.num_kv_heads
+        * lcfg.head_dim + 3 * lcfg.hidden_size * lcfg.intermediate_size))
+    enc_gib = (n_llava + 3.2e8 + 1.23e8) * 4 / 2**30
+    print(f"   memory plan: resident sampler + VAE {resident:.2f} GiB + f32 "
+          f"encoders ~{enc_gib:.2f} GiB + phase 11b's step working set "
+          f"(~11.4 GiB) = {resident + enc_gib + 11.4:.2f} of {total:.2f} GiB"
+          f": the encoders stay on the card")
+    if resident + enc_gib + 11.4 > total:
+        fail("the reckoned memory exceeds the card: run phase 13 under "
+             "use_cpu_offload")
+    ti = time.perf_counter()
+    llava = init_llava_(Llava(lcfg, CLIP_L_VISION_336, "cuda",
+                              dtype=torch.float32), gen)
+    clip = init_clip_text_(CLIPText(CLIP_L_TEXT, "cuda"), gen)
+    torch.cuda.synchronize()
+    enc_gib = _params_gib(llava, clip)
+    print(f"   encoders: llava {sum(p.numel() for p in llava.parameters())} "
+          f"+ CLIP-L text {sum(p.numel() for p in clip.parameters())} "
+          f"params, {enc_gib:.2f} GiB f32, init "
+          f"{time.perf_counter() - ti:.3f} s; allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sampler.text_encoder = (StandInTokenizer(lcfg.vocab_size, 256,
+                                             image_id=128257), lcfg, llava)
+    sampler.text_encoder_2 = (StandInTokenizer(
+        CLIP_L_TEXT.vocab_size, 77, bos=49406, eos=CLIP_L_TEXT.eos_token_id),
+        CLIP_L_TEXT, clip)
+    torch.cuda.reset_peak_memory_stats()
+    te = time.perf_counter()
+    txt, mask, txt2 = sampler.encode_prompt(PROMPT)
+    torch.cuda.synchronize()
+    t2v_s = time.perf_counter() - te
+    _check_states("encode_prompt states", txt, (256, 4096))
+    _check_states("encode_prompt pooled", txt2, (768,))
+    te = time.perf_counter()
+    txt, mask, txt2 = sampler.encode_prompt_i2v(PROMPT, img)
+    torch.cuda.synchronize()
+    i2v_s = time.perf_counter() - te
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    # 576 / 4 strided image tokens, then the text tokens from 678 without
+    # the 4 assistant-header tokens before the last "\n\n". The stand-in
+    # splits words, not BPE pieces, so its template is shorter than the
+    # real tokenizer's 103 tokens and the anchor lands earlier: the count
+    # follows extract_i2v_tokens' rule on the stand-in's ids
+    ids, _ = sampler.text_encoder[0](
+        I2V_TEMPLATE_INFO["video"]["template"].format(PROMPT), 256 + 103)
+    last = int(np.nonzero(ids[0] == 271)[0][-1]) + 575
+    n_text = max(0, last - 4 - 678) + 934 - last
+    _check_states("encode_prompt_i2v states", txt, (144 + n_text, 4096))
+    print(f"   encode seconds: T2V prompt {t2v_s:.3f} (351 ids), I2V prompt "
+          f"{i2v_s:.3f} (934 spliced tokens); peak {enc_peak:.2f} GiB; "
+          f"{int(mask.sum())} of {mask.numel()} tokens unmasked")
+    # txt_block_num 4, the I2V default: the llava states (144 image + up
+    # to 256 text tokens) overrun the 2 text blocks that `hyvideo-i2v
+    # --preset base` merges in from the T2V preset, and the planner fails
+    # on them in both packages (ROADMAP Queue 3)
+    opts = get_hy_i2v_options("base", size=(1280, 720), video_length=33,
+                              num_inference_steps=4, txt_block_num=4,
+                              i2v_condition_type="token_replace")
+    run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
+                      (16, 9, 90, 160))
+    free = total - torch.cuda.memory_allocated() / 2**30
+    # one carved step at 1280x720x125f takes 21.9 GiB above the resident
+    # DiT (PERF.md section 5: 45.71 GiB peak with the 23.8 GiB DiT)
+    need = 21.9
+    fits = free >= need + 1.0
+    print(f"   1280x720x125f with the encoders resident: {free:.2f} GiB "
+          f"free, a 125f step needs ~{need} GiB above the resident DiT: "
+          f"{'fits' if fits else 'does not fit'}"
+          f"{'' if fits else ' (use_cpu_offload keeps the encoders on the CPU)'}")
+    print(f"   gpu: {gpu_line()}")
+    sampler.text_encoder = sampler.text_encoder_2 = None
+    del llava, clip
+    _free()
+    done(t0)
+    run.update(seconds=time.perf_counter() - t0, encode_t2v_s=t2v_s,
+               encode_i2v_s=i2v_s, encoders_gib=enc_gib,
+               encode_peak_gib=enc_peak, free_gib_125f=free, fits_125f=fits)
+    return run
+
+
+def phase_wan_prompt(sampler, opts, kinds, gen):
+    """Phase 14 on phase 12's Wan2.1-I2V-14B sampler (VAE attached):
+    UMT5-XXL and the CLIP-H tower seeded on the card in f32, then
+    generate_image on a seeded 480x832 image with phase 4e's options."""
+    import torch
+    from jenga_tpu_torch.pipelines.wan_i2v import i2v_latent_size
+    from jenga_tpu_torch.text.clip import (CLIP_H_VISION, CLIPVision,
+                                          init_clip_vision_)
+    from jenga_tpu_torch.text.t5 import UMT5_XXL, T5Encoder, init_t5_
+    t0 = phase("14. Wan prompt path at published widths: UMT5-XXL + CLIP-H "
+               "(f32) beside the Wan2.1-I2V-14B sampler, generate_image")
+    ti = time.perf_counter()
+    t5 = init_t5_(T5Encoder(UMT5_XXL, "cuda", dtype=torch.float32), gen)
+    clip = init_clip_vision_(CLIPVision(CLIP_H_VISION, "cuda"), gen)
+    torch.cuda.synchronize()
+    enc_gib = _params_gib(t5, clip)
+    print(f"   encoders: UMT5-XXL {sum(p.numel() for p in t5.parameters())} "
+          f"+ CLIP-H {sum(p.numel() for p in clip.parameters())} params, "
+          f"{enc_gib:.2f} GiB f32, init {time.perf_counter() - ti:.3f} s; "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sampler.t5 = (StandInTokenizer(UMT5_XXL.vocab_size, 512, eos=1),
+                  UMT5_XXL, t5)
+    sampler.clip_vision = (CLIP_H_VISION, clip)
+    img = torch.rand((3, 480, 832), generator=gen, device="cuda")
+    te = time.perf_counter()
+    ctx = sampler.encode_prompt(PROMPT)
+    torch.cuda.synchronize()
+    t5_s = time.perf_counter() - te
+    _check_states("T5 prompt states (trimmed)", ctx, (17, 4096))
+    te = time.perf_counter()
+    fea = sampler.encode_image_clip(img)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - te
+    _check_states("CLIP image tokens", fea, (257, 1280))
+    print(f"   encode seconds: T5 {t5_s:.3f} (512 ids), CLIP {clip_s:.3f}")
+    # the image's latent size by the reference's rule: (58, 104) at
+    # 480x832 under max_area 832*480 (ROADMAP Queue 3)
+    lat_h, lat_w = i2v_latent_size(480, 832, opts.max_area)
+    run = _wan_i2v_run(
+        sampler, opts, kinds,
+        lambda **kw: sampler.generate_image(img, PROMPT, opts, **kw),
+        (3, 81, lat_h * 8, lat_w * 8), decode=True)
+    print(f"   gpu: {gpu_line()}")
+    sampler.t5 = sampler.clip_vision = None
+    del t5, clip
+    _free()
+    done(t0)
+    run.update(seconds=time.perf_counter() - t0, encode_t5_s=t5_s,
+               encode_clip_s=clip_s, encoders_gib=enc_gib)
+    return run
+
+
+# phase 15: small configs the card's kernels take (bf16 DiTs of head dim
+# 128), in the reference's directory layout
+def small_configs():
+    from jenga_tpu_torch.codec import vae_hy, vae_wan
+    from jenga_tpu_torch.models.hyvideo import HYVideoConfig
+    from jenga_tpu_torch.models.wan import WanConfig
+    from jenga_tpu_torch.text.clip import CLIPTextConfig, CLIPVisionConfig
+    from jenga_tpu_torch.text.llama import LlamaConfig
+    from jenga_tpu_torch.text.t5 import T5Config
+    return {
+        "hy": HYVideoConfig(hidden_size=256, heads_num=2, double_blocks=1,
+                            single_blocks=1, rope_dim_list=(16, 56, 56),
+                            text_states_dim=64, text_states_dim_2=32,
+                            refiner_depth=1, dtype="bfloat16"),
+        "llama": LlamaConfig(vocab_size=512, hidden_size=64,
+                             intermediate_size=128, num_layers=3,
+                             num_heads=4, num_kv_heads=2),
+        "llava_vision": CLIPVisionConfig(image_size=28, patch_size=14,
+                                         hidden_size=64,
+                                         intermediate_size=128,
+                                         num_layers=3, num_heads=4,
+                                         act="quick_gelu"),
+        "clip_text": CLIPTextConfig(vocab_size=512, hidden_size=32,
+                                    intermediate_size=64, num_layers=2,
+                                    num_heads=2, eos_token_id=511),
+        "hy_vae": vae_hy.HYVAEConfig(**HY_VAE_SMALL),
+        "wan_i2v": WanConfig(dim=256, ffn_dim=512, freq_dim=32,
+                             num_heads=2, num_layers=2, text_dim=64,
+                             text_len=32, dtype="bfloat16",
+                             model_type="i2v", in_dim=36),
+        "t5": T5Config(vocab_size=512, dim=64, dim_attn=64, dim_ffn=128,
+                       num_heads=2, num_layers=2),
+        "clip_h": CLIPVisionConfig(hidden_size=1280, intermediate_size=512,
+                                   num_layers=2, num_heads=16),
+        "wan_vae": vae_wan.WanVAEConfig(dim=8),
+    }
+
+
+@contextlib.contextmanager
+def small_published_configs(cfgs):
+    """The port's published configs patched to ``cfgs`` for the duration
+    (as the tests do), so from_pretrained builds the small models."""
+    from jenga_tpu_torch import runtime
+    from jenga_tpu_torch.codec import vae_hy, vae_wan
+    from jenga_tpu_torch.text import clip, t5
+    with contextlib.ExitStack() as stack:
+        for obj, name, value in (
+                (runtime, "HUNYUAN_VIDEO_T2V", cfgs["hy"]),
+                (vae_hy, "HYVAE_884_16C", cfgs["hy_vae"]),
+                (vae_wan, "WAN_VAE_16Z", cfgs["wan_vae"]),
+                (t5, "UMT5_XXL", cfgs["t5"]),
+                (clip, "CLIP_H_VISION", cfgs["clip_h"]),
+                (clip, "CLIP_L_VISION_336", cfgs["llava_vision"]),
+                (runtime.HunyuanVideoSampler, "TEXT_LEN", 32)):
+            stack.enter_context(mock.patch.object(obj, name, value))
+        stack.enter_context(mock.patch.dict(
+            runtime.WanSampler.CONFIGS, {"i2v-14B": cfgs["wan_i2v"]}))
+        yield
+
+
+class _RefSd(dict):
+    """A reference-layout state dict filled from a seeded generator."""
+
+    def __init__(self, seed):
+        import torch
+        super().__init__()
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def add(self, name, *shape):
+        import torch
+        self[name] = torch.randn(*shape, generator=self.gen) * 0.1
+
+    def lin(self, name, d_in, d_out, bias=True):
+        self.add(f"{name}.weight", d_out, d_in)
+        if bias:
+            self.add(f"{name}.bias", d_out)
+
+    def norm(self, name, d):
+        self.add(f"{name}.weight", d)
+        self.add(f"{name}.bias", d)
+
+
+def hy_dit_ref(cfg, seed=0) -> dict:
+    """HYVideoDiffusionTransformer's keys at ``cfg``."""
+    sd = _RefSd(seed)
+    d, hd, mh = cfg.hidden_size, cfg.head_dim, cfg.mlp_hidden
+    for i in range(cfg.double_blocks):
+        pre = f"double_blocks.{i}"
+        for s in ("img", "txt"):
+            sd.lin(f"{pre}.{s}_mod.linear", d, 6 * d)
+            sd.lin(f"{pre}.{s}_attn_qkv", d, 3 * d)
+            sd.add(f"{pre}.{s}_attn_q_norm.weight", hd)
+            sd.add(f"{pre}.{s}_attn_k_norm.weight", hd)
+            sd.lin(f"{pre}.{s}_attn_proj", d, d)
+            sd.lin(f"{pre}.{s}_mlp.fc1", d, mh)
+            sd.lin(f"{pre}.{s}_mlp.fc2", mh, d)
+    for i in range(cfg.single_blocks):
+        pre = f"single_blocks.{i}"
+        sd.lin(f"{pre}.modulation.linear", d, 3 * d)
+        sd.lin(f"{pre}.linear1", d, 3 * d + mh)
+        sd.lin(f"{pre}.linear2", d + mh, d)
+        sd.add(f"{pre}.q_norm.weight", hd)
+        sd.add(f"{pre}.k_norm.weight", hd)
+    for i in range(cfg.refiner_depth):
+        pre = f"txt_in.individual_token_refiner.blocks.{i}"
+        sd.norm(f"{pre}.norm1", d)
+        sd.lin(f"{pre}.self_attn_qkv", d, 3 * d)
+        sd.lin(f"{pre}.self_attn_proj", d, d)
+        sd.norm(f"{pre}.norm2", d)
+        sd.lin(f"{pre}.mlp.fc1", d, mh)
+        sd.lin(f"{pre}.mlp.fc2", mh, d)
+        sd.lin(f"{pre}.adaLN_modulation.1", d, 2 * d)
+    sd.add("img_in.proj.weight", d, cfg.in_channels, *cfg.patch_size)
+    sd.add("img_in.proj.bias", d)
+    sd.lin("txt_in.input_embedder", cfg.text_states_dim, d)
+    sd.lin("txt_in.t_embedder.mlp.0", 256, d)
+    sd.lin("txt_in.t_embedder.mlp.2", d, d)
+    sd.lin("txt_in.c_embedder.linear_1", cfg.text_states_dim, d)
+    sd.lin("txt_in.c_embedder.linear_2", d, d)
+    for emb in ("time_in", "guidance_in"):
+        sd.lin(f"{emb}.mlp.0", 256, d)
+        sd.lin(f"{emb}.mlp.2", d, d)
+    sd.lin("vector_in.in_layer", cfg.text_states_dim_2, d)
+    sd.lin("vector_in.out_layer", d, d)
+    sd.lin("final_layer.linear", d,
+           math.prod(cfg.patch_size) * cfg.out_channels)
+    sd.lin("final_layer.adaLN_modulation.1", d, 2 * d)
+    return dict(sd)
+
+
+def wan_dit_ref(cfg, seed=0, norm3=True) -> dict:
+    """WanModel's keys at ``cfg`` (I2V adds the image branch)."""
+    sd = _RefSd(seed)
+    d, fd = cfg.dim, cfg.ffn_dim
+    sd.add("patch_embedding.weight", d, cfg.in_dim, *cfg.patch_size)
+    sd.add("patch_embedding.bias", d)
+    sd.lin("text_embedding.0", cfg.text_dim, d)
+    sd.lin("text_embedding.2", d, d)
+    sd.lin("time_embedding.0", cfg.freq_dim, d)
+    sd.lin("time_embedding.2", d, d)
+    sd.lin("time_projection.1", d, 6 * d)
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}"
+        for a in ("self_attn", "cross_attn"):
+            for n in "qkvo":
+                sd.lin(f"{pre}.{a}.{n}", d, d)
+            sd.add(f"{pre}.{a}.norm_q.weight", d)
+            sd.add(f"{pre}.{a}.norm_k.weight", d)
+        if cfg.model_type == "i2v":
+            sd.lin(f"{pre}.cross_attn.k_img", d, d)
+            sd.lin(f"{pre}.cross_attn.v_img", d, d)
+            sd.add(f"{pre}.cross_attn.norm_k_img.weight", d)
+        if norm3:
+            sd.norm(f"{pre}.norm3", d)
+        sd.lin(f"{pre}.ffn.0", d, fd)
+        sd.lin(f"{pre}.ffn.2", fd, d)
+        sd.add(f"{pre}.modulation", 1, 6, d)
+    sd.lin("head.head", d, math.prod(cfg.patch_size) * cfg.out_dim)
+    sd.add("head.modulation", 1, 2, d)
+    if cfg.model_type == "i2v":
+        sd.norm("img_emb.proj.0", 1280)
+        sd.lin("img_emb.proj.1", 1280, 1280)
+        sd.lin("img_emb.proj.3", 1280, d)
+        sd.norm("img_emb.proj.4", d)
+    return dict(sd)
+
+
+def hyvae_ref(cfg, seed=0) -> dict:
+    """AutoencoderKLCausal3D's keys at ``cfg``."""
+    sd = _RefSd(seed)
+
+    def conv(name, ci, co, k=3):
+        sd.add(f"{name}.conv.weight", co, ci, k, k, k)
+        sd.add(f"{name}.conv.bias", co)
+
+    def resnet(pre, ci, co):
+        sd.norm(f"{pre}.norm1", ci)
+        conv(f"{pre}.conv1", ci, co)
+        sd.norm(f"{pre}.norm2", co)
+        conv(f"{pre}.conv2", co, co)
+        if ci != co:
+            conv(f"{pre}.conv_shortcut", ci, co, k=1)
+
+    def mid(pre, c):
+        resnet(f"{pre}.resnets.0", c, c)
+        resnet(f"{pre}.resnets.1", c, c)
+        sd.norm(f"{pre}.attentions.0.group_norm", c)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            sd.lin(f"{pre}.attentions.0.{nm}", c, c)
+
+    ch, lc = cfg.block_out_channels, cfg.latent_channels
+    conv("encoder.conv_in", cfg.in_channels, ch[0])
+    c_in = ch[0]
+    for i, c_out in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}",
+                   c_in if j == 0 else c_out, c_out)
+        if i != len(ch) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c_out,
+                 c_out)
+        c_in = c_out
+    mid("encoder.mid_block", ch[-1])
+    sd.norm("encoder.conv_norm_out", ch[-1])
+    conv("encoder.conv_out", ch[-1], 2 * lc)
+    rch = list(reversed(ch))
+    conv("decoder.conv_in", lc, ch[-1])
+    mid("decoder.mid_block", ch[-1])
+    c_in = rch[0]
+    for i, c_out in enumerate(rch):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}",
+                   c_in if j == 0 else c_out, c_out)
+        if i != len(rch) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", c_out, c_out)
+        c_in = c_out
+    sd.norm("decoder.conv_norm_out", ch[0])
+    conv("decoder.conv_out", ch[0], cfg.out_channels)
+    sd.add("quant_conv.weight", 2 * lc, 2 * lc, 1, 1, 1)
+    sd.add("quant_conv.bias", 2 * lc)
+    sd.add("post_quant_conv.weight", lc, lc, 1, 1, 1)
+    sd.add("post_quant_conv.bias", lc)
+    return dict(sd)
+
+
+def wanvae_ref(cfg, seed=0) -> dict:
+    """WanVAE_'s keys at ``cfg`` (flat nn.Sequential indices)."""
+    sd = _RefSd(seed)
+
+    def c3(name, ci, co, k=(3, 3, 3)):
+        sd.add(f"{name}.weight", co, ci, *k)
+        sd.add(f"{name}.bias", co)
+
+    def c2(name, ci, co, k=3):
+        sd.add(f"{name}.weight", co, ci, k, k)
+        sd.add(f"{name}.bias", co)
+
+    def res(pre, ci, co):
+        sd.add(f"{pre}.residual.0.gamma", ci, 1, 1, 1)
+        c3(f"{pre}.residual.2", ci, co)
+        sd.add(f"{pre}.residual.3.gamma", co, 1, 1, 1)
+        c3(f"{pre}.residual.6", co, co)
+        if ci != co:
+            c3(f"{pre}.shortcut", ci, co, k=(1, 1, 1))
+
+    def middle(pre, c):
+        res(f"{pre}.0", c, c)
+        sd.add(f"{pre}.1.norm.gamma", c, 1, 1)
+        c2(f"{pre}.1.to_qkv", c, 3 * c, k=1)
+        c2(f"{pre}.1.proj", c, c, k=1)
+        res(f"{pre}.2", c, c)
+
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    c3("encoder.conv1", 3, dims[0])
+    idx, c = 0, dims[0]
+    for i, co in enumerate(dims[1:]):
+        for _ in range(cfg.num_res_blocks):
+            res(f"encoder.downsamples.{idx}", c, co)
+            c, idx = co, idx + 1
+        if i != len(cfg.dim_mult) - 1:
+            pre = f"encoder.downsamples.{idx}"
+            c2(f"{pre}.resample.1", co, co)
+            if cfg.temporal_downsample[i]:
+                c3(f"{pre}.time_conv", co, co, k=(3, 1, 1))
+            idx += 1
+    middle("encoder.middle", dims[-1])
+    sd.add("encoder.head.0.gamma", dims[-1], 1, 1, 1)
+    c3("encoder.head.2", dims[-1], 2 * cfg.z_dim)
+    rdims = [cfg.dim * u for u in (cfg.dim_mult[-1],)
+             + tuple(reversed(cfg.dim_mult))]
+    t_up = tuple(reversed(cfg.temporal_downsample))
+    c3("decoder.conv1", cfg.z_dim, rdims[0])
+    middle("decoder.middle", rdims[0])
+    idx = 0
+    for i, co in enumerate(rdims[1:]):
+        c = rdims[i] // 2 if i in (1, 2, 3) else rdims[i]
+        for _ in range(cfg.num_res_blocks + 1):
+            res(f"decoder.upsamples.{idx}", c, co)
+            c, idx = co, idx + 1
+        if i != len(cfg.dim_mult) - 1:
+            pre = f"decoder.upsamples.{idx}"
+            c2(f"{pre}.resample.1", co, co // 2)
+            if t_up[i]:
+                c3(f"{pre}.time_conv", co, 2 * co, k=(3, 1, 1))
+            idx += 1
+    sd.add("decoder.head.0.gamma", cfg.dim, 1, 1, 1)
+    c3("decoder.head.2", cfg.dim, 3)
+    c3("conv1", 2 * cfg.z_dim, 2 * cfg.z_dim, k=(1, 1, 1))
+    c3("conv2", cfg.z_dim, cfg.z_dim, k=(1, 1, 1))
+    return dict(sd)
+
+
+def umt5_wan_ref(cfg, seed=0) -> dict:
+    """Wan's own T5 layout at ``cfg``."""
+    sd = _RefSd(seed)
+    d, da, df = cfg.dim, cfg.dim_attn, cfg.dim_ffn
+    sd.add("token_embedding.weight", cfg.vocab_size, d)
+    sd.add("norm.weight", d)
+    if cfg.shared_pos:
+        sd.add("pos_embedding.embedding.weight", cfg.num_buckets,
+               cfg.num_heads)
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}"
+        sd.add(f"{pre}.norm1.weight", d)
+        sd.add(f"{pre}.norm2.weight", d)
+        for n in "qkv":
+            sd.lin(f"{pre}.attn.{n}", d, da, bias=False)
+        sd.lin(f"{pre}.attn.o", da, d, bias=False)
+        sd.lin(f"{pre}.ffn.gate.0", d, df, bias=False)
+        sd.lin(f"{pre}.ffn.fc1", d, df, bias=False)
+        sd.lin(f"{pre}.ffn.fc2", df, d, bias=False)
+        if not cfg.shared_pos:
+            sd.add(f"{pre}.pos_embedding.embedding.weight", cfg.num_buckets,
+                   cfg.num_heads)
+    return dict(sd)
+
+
+def clip_wan_ref(vcfg, tcfg=None, seed=0) -> dict:
+    """Wan XLMRobertaCLIP's keys: ``visual.*`` at ``vcfg`` and, with
+    ``tcfg`` (an XLMRobertaConfig), ``textual.*``."""
+    sd = _RefSd(seed)
+    d, p = vcfg.hidden_size, vcfg.patch_size
+    sd.add("visual.patch_embedding.weight", d, 3, p, p)
+    sd.add("visual.cls_embedding", 1, 1, d)
+    sd.add("visual.pos_embedding", 1, (vcfg.image_size // p) ** 2 + 1, d)
+    sd.norm("visual.pre_norm", d)
+    sd.norm("visual.post_norm", d)
+    for i in range(vcfg.num_layers):
+        pre = f"visual.transformer.{i}"
+        sd.norm(f"{pre}.norm1", d)
+        sd.norm(f"{pre}.norm2", d)
+        sd.lin(f"{pre}.attn.to_qkv", d, 3 * d)
+        sd.lin(f"{pre}.attn.proj", d, d)
+        sd.lin(f"{pre}.mlp.0", d, vcfg.intermediate_size)
+        sd.lin(f"{pre}.mlp.2", vcfg.intermediate_size, d)
+    if tcfg is not None:
+        t = tcfg.dim
+        sd.add("textual.token_embedding.weight", tcfg.vocab_size, t)
+        sd.add("textual.type_embedding.weight", tcfg.type_size, t)
+        sd.add("textual.pos_embedding.weight", tcfg.max_positions, t)
+        sd.norm("textual.norm", t)
+        for i in range(tcfg.num_layers):
+            pre = f"textual.blocks.{i}"
+            for n in "qkvo":
+                sd.lin(f"{pre}.attn.{n}", t, t)
+            sd.norm(f"{pre}.norm1", t)
+            sd.norm(f"{pre}.norm2", t)
+            sd.lin(f"{pre}.ffn.0", t, tcfg.ffn_dim)
+            sd.lin(f"{pre}.ffn.2", tcfg.ffn_dim, t)
+    return dict(sd)
+
+
+def _hf_encoder_layers(sd, pre, n, d, ffn):
+    for i in range(n):
+        p = f"{pre}.encoder.layers.{i}"
+        sd.norm(f"{p}.layer_norm1", d)
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.lin(f"{p}.self_attn.{nm}", d, d)
+        sd.norm(f"{p}.layer_norm2", d)
+        sd.lin(f"{p}.mlp.fc1", d, ffn)
+        sd.lin(f"{p}.mlp.fc2", ffn, d)
+
+
+def hf_llava_ref(lcfg, vcfg, seed=0) -> dict:
+    """LlavaForConditionalGeneration's keys (the pre-4.52 layout)."""
+    sd = _RefSd(seed)
+    v, d, p = vcfg.hidden_size, lcfg.hidden_size, vcfg.patch_size
+    vt = "vision_tower.vision_model"
+    sd.add(f"{vt}.embeddings.patch_embedding.weight", v, 3, p, p)
+    sd.add(f"{vt}.embeddings.class_embedding", v)
+    sd.add(f"{vt}.embeddings.position_embedding.weight",
+           (vcfg.image_size // p) ** 2 + 1, v)
+    sd.norm(f"{vt}.pre_layrnorm", v)
+    _hf_encoder_layers(sd, vt, vcfg.num_layers, v, vcfg.intermediate_size)
+    sd.norm(f"{vt}.post_layernorm", v)
+    sd.lin("multi_modal_projector.linear_1", v, d)
+    sd.lin("multi_modal_projector.linear_2", d, d)
+    kvd = lcfg.num_kv_heads * lcfg.head_dim
+    lm = "language_model.model"
+    sd.add(f"{lm}.embed_tokens.weight", lcfg.vocab_size, d)
+    for i in range(lcfg.num_layers):
+        pre = f"{lm}.layers.{i}"
+        sd.add(f"{pre}.input_layernorm.weight", d)
+        sd.add(f"{pre}.post_attention_layernorm.weight", d)
+        for nm, o in (("q_proj", d), ("k_proj", kvd), ("v_proj", kvd),
+                      ("o_proj", d)):
+            sd.lin(f"{pre}.self_attn.{nm}", d, o, bias=False)
+        sd.lin(f"{pre}.mlp.gate_proj", d, lcfg.intermediate_size, bias=False)
+        sd.lin(f"{pre}.mlp.up_proj", d, lcfg.intermediate_size, bias=False)
+        sd.lin(f"{pre}.mlp.down_proj", lcfg.intermediate_size, d, bias=False)
+    sd.add(f"{lm}.norm.weight", d)
+    sd.add("language_model.lm_head.weight", lcfg.vocab_size, d)
+    return dict(sd)
+
+
+def hf_clip_text_ref(cfg, seed=0) -> dict:
+    """CLIPTextModel's keys at ``cfg``."""
+    sd = _RefSd(seed)
+    d = cfg.hidden_size
+    sd.add("text_model.embeddings.token_embedding.weight", cfg.vocab_size, d)
+    sd.add("text_model.embeddings.position_embedding.weight",
+           cfg.max_positions, d)
+    _hf_encoder_layers(sd, "text_model", cfg.num_layers, d,
+                       cfg.intermediate_size)
+    sd.norm("text_model.final_layer_norm", d)
+    return dict(sd)
+
+
+_ST_TAGS = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
+            "float8_e4m3fn": "F8_E4M3", "int64": "I64"}
+
+
+def write_safetensors(path, tensors: dict):
+    """The safetensors format, written by hand: an 8-byte little-endian
+    header length, the JSON header (dtype, shape, data offsets), the raw
+    bytes."""
+    import struct
+    import torch
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_TAGS[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _write_sharded(dirpath, sd: dict, stem: str, n: int = 2):
+    """``sd`` over ``n`` shards with a ``<stem>.safetensors.index.json``."""
+    keys = sorted(sd)
+    weight_map = {}
+    for s in range(n):
+        name = f"{stem}-{s + 1:05d}-of-{n:05d}.safetensors"
+        part = keys[s * len(keys) // n:(s + 1) * len(keys) // n]
+        write_safetensors(os.path.join(dirpath, name),
+                          {k: sd[k] for k in part})
+        weight_map.update(dict.fromkeys(part, name))
+    with open(os.path.join(dirpath, f"{stem}.safetensors.index.json"),
+              "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+
+
+def write_reference_dirs(root, cfgs) -> dict:
+    """Two checkpoint directories in the reference's layout at ``cfgs``
+    (``small_configs()``): ``hy`` (pytorch_model_module.pt in a deepspeed
+    ``module`` wrapper, its fp8 copy with the scale map, vae/,
+    text_encoder/ as a sharded safetensors llava with its index and
+    config.json, text_encoder_2/ as a CLIP safetensors file), ``wan_i2v``
+    (the sharded diffusion safetensors, Wan2.1_VAE.pth, the T5 and CLIP
+    .pth files), and a kohya LoRA. Seeded; no tokenizer files."""
+    import torch
+    from jenga_tpu_torch.runtime import WanSampler
+    hy, wan = os.path.join(root, "hy"), os.path.join(root, "wan_i2v")
+    for d in (os.path.join(hy, "vae"), os.path.join(hy, "text_encoder"),
+              os.path.join(hy, "text_encoder_2"), wan):
+        os.makedirs(d, exist_ok=True)
+    sd = hy_dit_ref(cfgs["hy"], seed=21)
+    torch.save({"module": sd}, os.path.join(hy, "pytorch_model_module.pt"))
+    fp8, scales = {}, {}
+    for k, v in sd.items():
+        if v.ndim == 2:
+            s = v.abs().max() / 448.0
+            fp8[k] = (v / s).to(torch.float8_e4m3fn)
+            scales[k[:-len(".weight")]] = s
+        else:
+            fp8[k] = v
+    torch.save(fp8, os.path.join(hy, "pytorch_model_module_fp8.pt"))
+    torch.save(scales, os.path.join(hy, "pytorch_model_module_fp8_map.pt"))
+    torch.save(hyvae_ref(cfgs["hy_vae"], seed=22),
+               os.path.join(hy, "vae", "pytorch_model.pt"))
+    lcfg, ccfg = cfgs["llama"], cfgs["clip_text"]
+    _write_sharded(os.path.join(hy, "text_encoder"),
+                   hf_llava_ref(lcfg, cfgs["llava_vision"], seed=23),
+                   "model")
+    with open(os.path.join(hy, "text_encoder", "config.json"), "w") as f:
+        json.dump({"text_config": {
+            "vocab_size": lcfg.vocab_size, "hidden_size": lcfg.hidden_size,
+            "intermediate_size": lcfg.intermediate_size,
+            "num_hidden_layers": lcfg.num_layers,
+            "num_attention_heads": lcfg.num_heads,
+            "num_key_value_heads": lcfg.num_kv_heads}}, f)
+    write_safetensors(os.path.join(hy, "text_encoder_2", "model.safetensors"),
+                      hf_clip_text_ref(ccfg, seed=24))
+    with open(os.path.join(hy, "text_encoder_2", "config.json"), "w") as f:
+        json.dump({"vocab_size": ccfg.vocab_size,
+                   "hidden_size": ccfg.hidden_size,
+                   "intermediate_size": ccfg.intermediate_size,
+                   "num_hidden_layers": ccfg.num_layers,
+                   "num_attention_heads": ccfg.num_heads,
+                   "eos_token_id": ccfg.eos_token_id}, f)
+    g = torch.Generator().manual_seed(25)
+    d = cfgs["hy"].hidden_size
+    lora = {}
+    for name, (o, i) in {"double_blocks_0_img_attn_qkv": (3 * d, d),
+                         "single_blocks_0_linear2":
+                         (d, d + cfgs["hy"].mlp_hidden)}.items():
+        key = f"Hunyuan_video_I2V_lora_{name}"
+        lora[f"{key}.lora_down.weight"] = torch.randn(4, i, generator=g)
+        lora[f"{key}.lora_up.weight"] = torch.randn(o, 4, generator=g) * 0.1
+        lora[f"{key}.alpha"] = torch.tensor(2.0)
+    write_safetensors(os.path.join(root, "lora.safetensors"), lora)
+    _write_sharded(wan, wan_dit_ref(cfgs["wan_i2v"], seed=26),
+                   "diffusion_pytorch_model")
+    torch.save(wanvae_ref(cfgs["wan_vae"], seed=27),
+               os.path.join(wan, "Wan2.1_VAE.pth"))
+    torch.save(umt5_wan_ref(cfgs["t5"], seed=28),
+               os.path.join(wan, WanSampler.T5_CKPT))
+    torch.save(clip_wan_ref(cfgs["clip_h"], seed=29),
+               os.path.join(wan, WanSampler.CLIP_CKPT))
+    return {"hy": hy, "wan_i2v": wan,
+            "lora": os.path.join(root, "lora.safetensors")}
+
+
+def _same_tensors(name, a: dict, b: dict):
+    """Two state dicts bit for bit (the card's copied to the CPU)."""
+    import torch
+    if sorted(a) != sorted(b):
+        fail(f"{name}: the loads hold other names")
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            fail(f"{name}: {k} differs between the card's and the CPU's "
+                 f"load")
+
+
+def _placed(name, module, device):
+    devs = {p.device.type for p in module.parameters()}
+    if devs != {device}:
+        fail(f"{name} is on {devs}, asked for {device}")
+
+
+def _set_standins(hy=None, wan=None, cfgs=None):
+    if hy is not None:
+        lcfg = hy.text_encoder[1]
+        hy.text_encoder = (StandInTokenizer(lcfg.vocab_size, 32,
+                                            image_id=500),
+                           *hy.text_encoder[1:])
+        ccfg = hy.text_encoder_2[1]
+        hy.text_encoder_2 = (StandInTokenizer(ccfg.vocab_size, 77,
+                                              eos=ccfg.eos_token_id),
+                             *hy.text_encoder_2[1:])
+    if wan is not None:
+        wan.t5 = (StandInTokenizer(wan.t5[1].vocab_size, 512, eos=1),
+                  *wan.t5[1:])
+
+
+def phase_checkpoints():
+    """Phase 15: small reference-layout directories loaded on the card
+    and on the CPU."""
+    import shutil
+    import torch
+    from jenga_tpu_torch.configs.presets import (get_hy_preset,
+                                                 get_wan_i2v_options)
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler, WanSampler
+    t0 = phase("15. checkpoint directories on the card: small configs in "
+               "the reference's layout, from_pretrained on the card vs the "
+               "CPU")
+    cfgs = small_configs()
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    rels = {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        dirs = write_reference_dirs(root, cfgs)
+        img = torch.rand((3, 40, 30), generator=torch.Generator()
+                         .manual_seed(30))
+        with small_published_configs(cfgs):
+            for label, kw in (("plain", {}), ("use_fp8", {"use_fp8": True}),
+                              ("lora", {"lora_path": dirs["lora"],
+                                        "lora_alpha": 0.8}),
+                              ("use_cpu_offload",
+                               {"use_cpu_offload": True})):
+                ti = time.perf_counter()
+                card = HunyuanVideoSampler.from_pretrained(
+                    dirs["hy"], device="cuda", **kw)
+                load_s = time.perf_counter() - ti
+                cpu = HunyuanVideoSampler.from_pretrained(
+                    dirs["hy"], device="cpu", **kw)
+                parts = {"DiT": (card.model, cpu.model), "VAE": (
+                    card.vae, cpu.vae), "llava": (card.text_encoder[2],
+                                                  cpu.text_encoder[2]),
+                         "CLIP text": (card.text_encoder_2[2],
+                                       cpu.text_encoder_2[2])}
+                aux = "cpu" if label == "use_cpu_offload" else "cuda"
+                for part, (a, b) in parts.items():
+                    _same_tensors(f"HY {label} {part}", a.state_dict(),
+                                  b.state_dict())
+                    _placed(f"HY {label} {part}", a,
+                            "cuda" if part == "DiT" else aux)
+                _set_standins(hy=card)
+                _set_standins(hy=cpu)
+                for enc, args in (("encode_prompt", (PROMPT,)),
+                                  ("encode_prompt_i2v", (PROMPT, img))):
+                    got = getattr(card, enc)(*args)
+                    want = getattr(cpu, enc)(*args)
+                    for j, (g, w) in enumerate(zip(got, want)):
+                        if j == 1:
+                            if not torch.equal(g.cpu(), w):
+                                fail(f"HY {label} {enc}: the masks differ")
+                            continue
+                        rels[f"hy_{label}_{enc}_{j}"] = r = _rel(g, w)
+                        if not r <= ENC_TOL:
+                            fail(f"HY {label} {enc} output {j}: card vs "
+                                 f"CPU relative L2 {r} > {ENC_TOL}")
+                opts = get_hy_preset("base", size=(256, 128),
+                                     video_length=9, num_inference_steps=2)
+                with _Launches() as run:
+                    out = card.predict_prompt(PROMPT, opts)
+                    torch.cuda.synchronize()
+                _check_video(out, (3, 9, 128, 256))
+                if run.counts["block_sparse_attn"] + run.counts[
+                        "dense_attn"] == 0:
+                    fail(f"HY {label}: no attention kernel launched")
+                _placed(f"HY {label} VAE after decode", card.vae, aux)
+                print(f"   HY {label}: loaded in {load_s:.3f} s, tensors "
+                      f"equal to the CPU load, DiT on cuda, encoders and "
+                      f"VAE on {aux}; prompt -> 2 steps -> video "
+                      f"{tuple(out.shape)}; launches {run.counts}")
+                del card, cpu, out
+                _free()
+            for label, kw in (("plain", {}), ("t5_on_host",
+                                              {"t5_on_host": True})):
+                card = WanSampler.from_pretrained(
+                    "i2v-14B", dirs["wan_i2v"], device="cuda", **kw)
+                cpu = WanSampler.from_pretrained(
+                    "i2v-14B", dirs["wan_i2v"], device="cpu", **kw)
+                t5_dev = "cpu" if label == "t5_on_host" else "cuda"
+                for part, a, b, dev in (
+                        ("DiT", card.model, cpu.model, "cuda"),
+                        ("VAE", card.vae, cpu.vae, "cuda"),
+                        ("T5", card.t5[2], cpu.t5[2], t5_dev),
+                        ("CLIP", card.clip_vision[1], cpu.clip_vision[1],
+                         "cuda")):
+                    _same_tensors(f"Wan {label} {part}", a.state_dict(),
+                                  b.state_dict())
+                    _placed(f"Wan {label} {part}", a, dev)
+                _set_standins(wan=card)
+                _set_standins(wan=cpu)
+                for enc, arg in (("encode_prompt", PROMPT),
+                                 ("encode_image_clip", img)):
+                    rels[f"wan_{label}_{enc}"] = r = _rel(
+                        getattr(card, enc)(arg), getattr(cpu, enc)(arg))
+                    if not r <= ENC_TOL:
+                        fail(f"Wan {label} {enc}: card vs CPU relative L2 "
+                             f"{r} > {ENC_TOL}")
+                opts = get_wan_i2v_options(256 * 256, frame_num=9,
+                                           sampling_steps=2)
+                with _Launches() as run:
+                    out = card.generate_image(img, PROMPT, opts)
+                    torch.cuda.synchronize()
+                if out.ndim != 4 or out.shape[:2] != (3, 9) or not \
+                        torch.isfinite(out).all():
+                    fail(f"Wan {label}: video {tuple(out.shape)} is not a "
+                         f"finite [3, 9, H, W]")
+                if run.counts["dense_attn"] == 0:
+                    fail(f"Wan {label}: D did not launch")
+                print(f"   Wan I2V {label}: tensors equal to the CPU load, "
+                      f"T5 on {t5_dev}; image + prompt -> 2 steps -> video "
+                      f"{tuple(out.shape)}; launches {run.counts}")
+                del card, cpu, out
+                _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"   card vs CPU relative L2, max over the encoder outputs: "
+          f"{max(rels.values()):.3e} (bound {ENC_TOL}); peak memory "
+          f"{peak:.2f} GiB")
+    print(f"   gpu: {gpu_line()}")
+    done(t0)
+    return {"seconds": time.perf_counter() - t0, "rel": rels,
+            "peak_gib": peak}
 
 
 def main():
@@ -1901,8 +2848,10 @@ def main():
     hy_fp8 = phase_hy_fp8(fp8_ref, hy["peak_gib"])
     wan_dpm, wan_dpm_turbo = phase_wan_dpm()
     fid = phase_fidelity()
-    hy_vae, hy_i2v_vae = phase_hy_vae(hy.pop("latents"))
-    wan_vae, wan_i2v_vae = phase_wan_vae(wan.pop("latents"), wan_i2v_plan)
+    hy_vae, hy_i2v_vae, hy_prompt = phase_hy_vae(hy.pop("latents"))
+    wan_vae, wan_i2v_vae, wan_prompt = phase_wan_vae(wan.pop("latents"),
+                                                     wan_i2v_plan)
+    ckpt = phase_checkpoints()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -1919,7 +2868,9 @@ def main():
             "wan_t2v_1.3b_turbo_dpm": wan_dpm_turbo["launches"],
             "fidelity_wan_1.3b_q8_vs_dense": fid["launches"],
             "hyvideo_i2v_token_replace_vae": hy_i2v_vae["launches"],
-            "wan_i2v_14b_vae": wan_i2v_vae["launches"]}
+            "wan_i2v_14b_vae": wan_i2v_vae["launches"],
+            "hyvideo_i2v_prompt": hy_prompt["launches"],
+            "wan_i2v_14b_prompt": wan_prompt["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -2014,6 +2965,12 @@ def main():
                              ("12_wan_decode", wan_vae),
                              ("12b_wan_i2v_encode_run_decode", wan_i2v_vae))}
     print("vae: " + json.dumps(vae))
+    print("prompt: " + json.dumps({
+        "13_hy_prompt": {k: v for k, v in hy_prompt.items()
+                         if k not in ("launches", "step_s")},
+        "14_wan_prompt": {k: v for k, v in wan_prompt.items()
+                          if k not in ("launches", "step_s", "schedule")},
+        "15_checkpoints": ckpt}))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

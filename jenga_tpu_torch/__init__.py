@@ -6,7 +6,9 @@ fixed-list and TeaCache step skipping) on an NVIDIA Hopper GPU. Attention
 runs on two hand-written sm_90a CUDA kernels, block-sparse
 (``csrc/block_sparse_attn.cu``) and dense (``csrc/dense_attn.cu``); every
 other op is plain PyTorch, among them the two video VAEs (``codec/``:
-HunyuanVideo's tiled causal 3-D VAE, Wan2.1's streamed frame by frame).
+HunyuanVideo's tiled causal 3-D VAE, Wan2.1's streamed frame by frame)
+and the text and image encoders (``text/``). ``convert/`` loads the
+reference's checkpoint directories (``from_pretrained``).
 The probe tools (``tools/``) time four more hand-written kernels
 (``csrc/attn_probe.cu``, ``csrc/block_pool.cu``,
 ``csrc/cross_attn_resident.cu``) that no main path runs. The numpy-only

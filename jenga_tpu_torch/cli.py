@@ -27,23 +27,31 @@ JAX CLI's ``--task`` defaults to t2v-1.3B whatever the preset says);
 stores the published model's large linear weights in e4m3; as in the JAX
 CLI it does not act on ``--tiny``.
 
-The port has no checkpoints, text encoders or image encoders yet: the DiT
-runs from a seeded random init on the device, the text states are zero
-embeddings (256 tokens for HunyuanVideo; 64 for Wan, padded to its
-``text_len``), and no command builds a VAE (the samplers take one as
-``vae=``, see ``runtime.py``; the CLI gets one with the checkpoints). So
-each command saves its final latents (.npy), as the JAX CLI does without a
-VAE in its checkpoint directory: the output rule is JAX's
-(``_save_output``), a [3, F, H, W] video through ``utils.video`` and
-anything else as .npy. ``hyvideo-i2v --i2v-image-path`` loads the image
-and, without ``--video-size``, buckets the video size by its aspect at
-``--i2v-resolution``; it encodes one conditioning latent per stage when the
-sampler has a VAE, else (here) takes zero latents with JAX's message.
-Without an image it needs ``--tiny``. ``wan-i2v`` runs on zero conditioning
-(its image path needs T5 and CLIP); the would-be image is ``--video-size``
-(default 832x480), and the latent size comes from its aspect under
-``--max-area``; with ``--tiny`` and no ``--video-size`` the latent is 16x16
-over 9 frames, the JAX smoke shape.
+``--ckpt-dir`` names a checkpoint directory in the reference's layout
+(``runtime.py``): the commands then load the DiT, the VAE and the
+encoders found there and run from ``--prompt`` (``--neg-prompt``; Wan
+takes its default negative prompt without one), as the JAX CLI does;
+tokenizing the prompt needs the ``transformers`` package. Without encoder
+checkpoints the text states are zero embeddings (256 tokens for
+HunyuanVideo; 64 for Wan, padded to its ``text_len``), the smoke mode;
+without a DiT checkpoint (HunyuanVideo, or no ``--ckpt-dir``) the DiT
+comes from a seeded random init on the device. The output follows JAX's
+``_save_output``: a [3, F, H, W] video through ``utils.video`` when a VAE
+was loaded and ``--latents-only`` is absent, anything else as .npy.
+``--use-cpu-offload`` keeps HunyuanVideo's encoders and VAE weights on the
+CPU, ``--lora-path`` merges a kohya LoRA into the HunyuanVideo-I2V DiT,
+``--t5-cpu`` keeps Wan's T5 on the CPU.
+
+``hyvideo-i2v --i2v-image-path`` loads the image and, without
+``--video-size``, buckets the video size by its aspect at
+``--i2v-resolution``; it encodes one conditioning latent per stage when
+the sampler has a VAE, else takes zero latents with JAX's message; with a
+llava text encoder the prompt is encoded with the image, else in image
+mode. Without an image it needs ``--tiny``. ``wan-i2v`` needs ``--image``
+and a checkpoint directory with T5 (and CLIP) unless ``--tiny``, which
+runs on zero conditioning: the latent is 16x16 over 9 frames (the JAX
+smoke shape), or with ``--video-size`` the ``i2v_latent_size`` of it
+under ``--max-area``.
 """
 
 from __future__ import annotations
@@ -93,6 +101,16 @@ def _common(p: argparse.ArgumentParser):
                    help="skip the VAE decode and dump the latents (.npy)")
     p.add_argument("--save-path", type=str, default="output.npy")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--prompt", type=str, default="A cat walks on the grass")
+    p.add_argument("--neg-prompt", type=str, default=None)
+    p.add_argument("--ckpt-dir", type=str, default=None,
+                   help="checkpoint directory in the reference's layout")
+
+
+def _offload(p: argparse.ArgumentParser):
+    p.add_argument("--use-cpu-offload", action="store_true",
+                   help="keep the VAE and text-encoder weights on the CPU "
+                        "and encode the prompt there")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,6 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="e4m3 storage of the large linear weights, "
                         "dequantized to bf16 in each product (not with "
                         "--tiny, as in the JAX CLI)")
+    _offload(h)
     _common(h)
     i = sub.add_parser("hyvideo-i2v", help="HunyuanVideo image-to-video")
     i.add_argument("--preset", default="base", choices=["base"])
@@ -120,6 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "when --video-size is not given")
     i.add_argument("--i2v-image-path", type=str, default=None,
                    help="the conditioning image (first frame)")
+    i.add_argument("--lora-path", type=str, default=None,
+                   help="kohya LoRA safetensors to merge into the DiT")
+    _offload(i)
     _common(i)
     w = sub.add_parser("wan-t2v", help="Wan2.1 text-to-video")
     w.add_argument("--preset", default="1.3b-base",
@@ -133,10 +155,14 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--teacache-thresh", type=float, default=None)
     w.add_argument("--sample-solver", default=None,
                    choices=["unipc", "dpm++"])
+    w.add_argument("--t5-cpu", action="store_true",
+                   help="keep the UMT5 encoder on the CPU")
     wi = sub.add_parser("wan-i2v", help="Wan2.1 image-to-video (14B)")
     wi.add_argument("--max-area", type=int, default=720 * 1280,
                     help="pixel budget of the video; <= 832*480 also sets "
                          "the flow shift 3.0")
+    wi.add_argument("--image", type=str, default=None,
+                    help="the conditioning image (first frame)")
     _common(wi)
     return ap
 
@@ -230,19 +256,37 @@ def hy_t2v_options(args):
     return get_hy_preset(args.preset, **over)
 
 
-def run_hyvideo_t2v(args):
-    from .models.hyvideo import HUNYUAN_VIDEO_T2V
+def _hy_sampler(args, i2v: bool = False, cond: str = "token_replace"):
+    """``--tiny``'s model, else ``from_pretrained(--ckpt-dir)``: the
+    published model, with whatever the directory holds."""
+    from .models.hyvideo import hy_i2v_config
     from .runtime import HunyuanVideoSampler
+    if args.tiny:
+        cfg = _tiny_config(args.device)
+        # --use-fp8 acts on the published model only, as in the JAX CLI
+        return HunyuanVideoSampler(
+            hy_i2v_config(cond, cfg) if i2v else cfg, device=args.device,
+            seed=args.seed, i2v=i2v, use_fp8=False)
+    return HunyuanVideoSampler.from_pretrained(
+        args.ckpt_dir, i2v=i2v, seed=args.seed,
+        use_fp8=getattr(args, "use_fp8", False),
+        lora_path=getattr(args, "lora_path", None),
+        use_cpu_offload=args.use_cpu_offload, device=args.device,
+        i2v_condition_type=cond)
 
+
+def run_hyvideo_t2v(args):
     opts = hy_t2v_options(args)
-    cfg = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
-    # --use-fp8 acts on the published model only, as in the JAX CLI
-    sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed,
-                                  use_fp8=args.use_fp8 and not args.tiny)
-    text = _zero_hy_text(cfg, sampler.TEXT_LEN)
+    sampler = _hy_sampler(args)
     t0 = time.time()
-    _save(args, sampler.predict(*text, opts, decode=not args.latents_only),
-          t0)
+    if sampler.text_encoder is not None:
+        out = sampler.predict_prompt(args.prompt, opts,
+                                     negative_prompt=args.neg_prompt,
+                                     decode=not args.latents_only)
+    else:   # no encoder checkpoints: zero embeddings (smoke mode)
+        out = sampler.predict(*_zero_hy_text(sampler.cfg, sampler.TEXT_LEN),
+                              opts, decode=not args.latents_only)
+    _save(args, out, t0)
 
 
 def hy_i2v_options(args):
@@ -271,19 +315,16 @@ def hy_i2v_bucket(image, resolution: str):
     return (w, h)
 
 
-def hy_i2v_image_latents(args, sampler, opts):
+def hy_i2v_image_latents(args, sampler, opts, image=None):
     """(options, one conditioning latent per stage) by the JAX CLI's rule:
-    with ``--i2v-image-path`` the image, bucketed when ``--video-size`` is
-    absent, encoded at each stage's latent size if the sampler has a VAE,
-    else zero latents; without an image, zero latents."""
+    with an image (``--i2v-image-path``), the size bucketed when
+    ``--video-size`` is absent, the image encoded at each stage's latent
+    size if the sampler has a VAE, else zero latents; without an image,
+    zero latents."""
     import numpy as np
-    image = None
-    if args.i2v_image_path:
-        from .runtime import load_image
-        image = load_image(args.i2v_image_path)
-        if not args.video_size:
-            opts = dataclasses.replace(
-                opts, size=hy_i2v_bucket(image, args.i2v_resolution))
+    if image is not None and not args.video_size:
+        opts = dataclasses.replace(
+            opts, size=hy_i2v_bucket(image, args.i2v_resolution))
     shapes = sampler.pipeline._stage_shapes(opts)
     if image is not None and sampler.vae is not None:
         return opts, [sampler.encode_image_latent(image, lat[1], lat[2])
@@ -294,20 +335,32 @@ def hy_i2v_image_latents(args, sampler, opts):
                   for lat, _ in shapes]
 
 
-def run_hyvideo_i2v(args):
-    from .models.hyvideo import HUNYUAN_VIDEO_T2V, hy_i2v_config
-    from .runtime import HunyuanVideoSampler
+def hy_i2v_text(args, sampler, image):
+    """The I2V text states by the JAX CLI's rule: with a llava encoder and
+    an image, the prompt encoded with the image; with another encoder, in
+    image mode; without one, zeros."""
+    from .text.llava import Llava
+    if sampler.text_encoder is None:
+        return _zero_hy_text(sampler.cfg, sampler.TEXT_LEN)
+    if image is not None and isinstance(sampler.text_encoder[2], Llava):
+        return sampler.encode_prompt_i2v(
+            args.prompt, image, mode="video",
+            i2v_condition_type=args.i2v_condition_type)
+    return sampler.encode_prompt(args.prompt, mode="image")
 
+
+def run_hyvideo_i2v(args):
     if not args.i2v_image_path and not args.tiny:
         raise SystemExit("hyvideo-i2v requires --i2v-image-path (or --tiny "
                          "for a smoke run)")
     opts = hy_i2v_options(args)
-    base = _tiny_config(args.device) if args.tiny else HUNYUAN_VIDEO_T2V
-    cfg = hy_i2v_config(opts.i2v_condition_type, base)
-    sampler = HunyuanVideoSampler(cfg, device=args.device, seed=args.seed,
-                                  i2v=True)
-    opts, image_latents = hy_i2v_image_latents(args, sampler, opts)
-    text = _zero_hy_text(cfg, sampler.TEXT_LEN)
+    sampler = _hy_sampler(args, i2v=True, cond=opts.i2v_condition_type)
+    image = None
+    if args.i2v_image_path:
+        from .runtime import load_image
+        image = load_image(args.i2v_image_path)
+    opts, image_latents = hy_i2v_image_latents(args, sampler, opts, image)
+    text = hy_i2v_text(args, sampler, image)
     t0 = time.time()
     _save(args, sampler.predict_i2v(image_latents, *text, opts,
                                     decode=not args.latents_only), t0)
@@ -354,21 +407,33 @@ def wan_t2v_task(args) -> str:
     return "t2v-14B" if args.preset.startswith("14b") else "t2v-1.3B"
 
 
+def _wan_sampler(args, task: str):
+    """``--tiny``'s model, else ``from_pretrained(task, --ckpt-dir)``."""
+    from .runtime import WanSampler
+    if args.tiny:
+        return WanSampler(_tiny_wan_config(args.device,
+                                           i2v=task.startswith("i2v")),
+                          device=args.device, seed=args.seed)
+    return WanSampler.from_pretrained(
+        task, args.ckpt_dir, seed=args.seed,
+        t5_on_host=getattr(args, "t5_cpu", False), device=args.device)
+
+
 def run_wan_t2v(args):
     import numpy as np
-    from .runtime import WanSampler
 
     opts = wan_t2v_options(args)
-    if args.tiny:
-        sampler = WanSampler(_tiny_wan_config(args.device),
-                             device=args.device, seed=args.seed)
-    else:
-        sampler = WanSampler.from_task(wan_t2v_task(args),
-                                       device=args.device, seed=args.seed)
-    ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
+    sampler = _wan_sampler(args, wan_t2v_task(args))
     t0 = time.time()
-    _save(args, sampler.generate(ctx, np.zeros_like(ctx), opts,
-                                 decode=not args.latents_only), t0)
+    if sampler.t5 is not None:
+        out = sampler.generate_prompt(args.prompt, opts,
+                                      negative_prompt=args.neg_prompt or "",
+                                      decode=not args.latents_only)
+    else:   # no T5 checkpoint: zero embeddings (smoke mode)
+        ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
+        out = sampler.generate(ctx, np.zeros_like(ctx), opts,
+                               decode=not args.latents_only)
+    _save(args, out, t0)
 
 
 def wan_i2v_inputs(args):
@@ -402,28 +467,38 @@ def wan_i2v_inputs(args):
     return (opts, opts.frame_num, *i2v_latent_size(h, w, args.max_area))
 
 
+WAN_I2V_NEEDS = ("wan-i2v requires --image and a ckpt dir with T5 + CLIP "
+                 "(or --tiny for a smoke run)")
+
+
 def run_wan_i2v(args):
     import numpy as np
     from .models.wan import CLIP_DIM
-    from .runtime import WanSampler
 
+    # without an image or a checkpoint directory there is no T5: exit
+    # before building the 14B model (the JAX CLI exits after building it)
+    if not args.tiny and not (args.image and args.ckpt_dir):
+        raise SystemExit(WAN_I2V_NEEDS)
     opts, frame_num, lat_h, lat_w = wan_i2v_inputs(args)
-    if args.tiny:
-        sampler = WanSampler(_tiny_wan_config(args.device, i2v=True),
-                             device=args.device, seed=args.seed)
-    else:
-        sampler = WanSampler.from_task("i2v-14B", device=args.device,
-                                       seed=args.seed)
-    # no T5 or CLIP tower yet, so no image path: zero image latent and
-    # CLIP tokens
-    t_lat = (frame_num - 1) // 4 + 1
-    img_lat = np.zeros((16, t_lat, lat_h, lat_w), np.float32)
-    clip_fea = np.zeros((257, CLIP_DIM), np.float32)
-    ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
+    sampler = _wan_sampler(args, "i2v-14B")
     t0 = time.time()
-    _save(args, sampler.generate_i2v(
-        img_lat, clip_fea, ctx, np.zeros_like(ctx), frame_num, lat_h, lat_w,
-        opts, decode=not args.latents_only), t0)
+    if args.image and sampler.t5 is not None:
+        from .runtime import load_image
+        out = sampler.generate_image(load_image(args.image), args.prompt,
+                                     opts,
+                                     negative_prompt=args.neg_prompt or "",
+                                     decode=not args.latents_only)
+    elif not args.tiny:
+        raise SystemExit(WAN_I2V_NEEDS)
+    else:   # smoke: zero image latent, CLIP tokens and text
+        t_lat = (frame_num - 1) // 4 + 1
+        img_lat = np.zeros((16, t_lat, lat_h, lat_w), np.float32)
+        clip_fea = np.zeros((257, CLIP_DIM), np.float32)
+        ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
+        out = sampler.generate_i2v(img_lat, clip_fea, ctx, np.zeros_like(ctx),
+                                   frame_num, lat_h, lat_w, opts,
+                                   decode=not args.latents_only)
+    _save(args, out, t0)
 
 
 def main(argv=None):

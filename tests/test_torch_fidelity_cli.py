@@ -263,7 +263,7 @@ def test_wan_task_quirk(argv, jax_task, port_task):
         jcli.run_wan_t2v(jcli.build_parser().parse_args(
             argv + ["--no-compile-cache", "--cpu"]))
     assert seen.pop("task") == jax_task
-    with mock.patch.object(truntime.WanSampler, "from_task",
+    with mock.patch.object(truntime.WanSampler, "from_pretrained",
                            staticmethod(record)), pytest.raises(_Captured):
         tcli.run_wan_t2v(tcli.build_parser().parse_args(argv))
     assert seen["task"] == port_task
@@ -293,12 +293,15 @@ def test_use_fp8_quirk(tiny):
             argv + ["--no-compile-cache", "--cpu"]))
     assert seen.get("jax", False) is (not tiny)
 
-    def sampler(cfg, **kw):
+    def sampler(*a, **kw):
         seen["port"] = kw["use_fp8"]
         raise _Captured
 
-    with mock.patch.object(truntime, "HunyuanVideoSampler", sampler), \
-            pytest.raises(_Captured):
+    # --tiny builds its model, else the handler calls from_pretrained
+    with (mock.patch.object(truntime, "HunyuanVideoSampler", sampler)
+          if tiny else mock.patch.object(
+              truntime.HunyuanVideoSampler, "from_pretrained",
+              staticmethod(sampler))), pytest.raises(_Captured):
         tcli.run_hyvideo_t2v(tcli.build_parser().parse_args(
             argv + ["--device", "cpu"]))
     assert seen["port"] is (not tiny)

@@ -6,7 +6,9 @@ Curve orders, block adjacency and skip schedules must stay index for
 index equal to ``jenga_tpu``'s: fidelity against JAX depends on it.
 """
 
+import ast
 import dataclasses
+import functools
 import importlib
 import pathlib
 import pkgutil
@@ -132,22 +134,52 @@ def test_validate_wan_raises_as_jax(bad):
     assert (got is None) == (bad is None)
 
 
-def test_port_imports_neither_jenga_tpu_nor_jax():
-    """A fresh interpreter imports every module of the port (the tools
-    included) and finds no module of jenga_tpu or JAX loaded."""
+@functools.lru_cache(maxsize=1)
+def _modules_after_importing_the_port():
+    """Every module of the port (the tools included) imported in a fresh
+    interpreter: (their names, the modules then loaded)."""
     names = [m.name for m in pkgutil.walk_packages(jenga_tpu_torch.__path__,
                                                    "jenga_tpu_torch.")]
-    assert "jenga_tpu_torch.tools.kernel_split_probe" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'jenga_tpu')\n"
-        "             or m.startswith(('jax.', 'jenga_tpu.')))\n"
-        "print(bad)\n")
+        "print(sorted(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "[]"
+    return names, ast.literal_eval(res.stdout.strip())
+
+
+def _loaded(prefixes):
+    return sorted(m for m in _modules_after_importing_the_port()[1]
+                  if m in prefixes or m.startswith(tuple(
+                      p + "." for p in prefixes)))
+
+
+def test_port_imports_neither_jenga_tpu_nor_jax():
+    """A fresh interpreter imports every module of the port (the tools
+    included) and finds no module of jenga_tpu or JAX loaded."""
+    names = _modules_after_importing_the_port()[0]
+    assert "jenga_tpu_torch.tools.kernel_split_probe" in names
+    assert _loaded(("jax", "jenga_tpu")) == []
     assert importlib.import_module("jenga_tpu_torch.curves.blocks") \
         is pt_blocks
+
+
+def test_port_imports_no_transformers_or_safetensors():
+    """The same import of every module loads neither ``transformers`` nor
+    ``safetensors`` (the card machine has neither; the tokenizer adapter
+    imports ``transformers`` on first use), and no file of the port uses
+    ``safetensors``: the reader is the port's own."""
+    names = _modules_after_importing_the_port()[0]
+    assert {"jenga_tpu_torch.text.llava", "jenga_tpu_torch.convert.encoders",
+            "jenga_tpu_torch.runtime"} <= set(names)
+    assert _loaded(("transformers", "safetensors", "tokenizers")) == []
+    for path in (ROOT / "jenga_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        imported = {a.name.split(".")[0] for node in ast.walk(tree)
+                    if isinstance(node, ast.Import) for a in node.names} | {
+            (node.module or "").split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level == 0}
+        assert "safetensors" not in imported, path

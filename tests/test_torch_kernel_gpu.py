@@ -1,9 +1,11 @@
 """The CUDA kernels (block-sparse attention in its all-member and
 membership modes, dense attention, and the probe kernels P1-P4) against
 their plain torch versions, the HunyuanVideo token_replace pinning, the
-fp8 ``linear``, the CLI's ``--tiny`` runs (T2V and I2V, dpm++), and the
-VAEs, the image encode and the resize against the CPU, on a CUDA card
-(skipped without one). This file imports no JAX, so it also runs on a
+fp8 ``linear``, the CLI's ``--tiny`` runs (T2V and I2V, dpm++), the
+VAEs, the image encode, the resize, the text and image encoders and the
+checkpoint loads (``from_pretrained`` of the smoke's small
+reference-layout directories) against the CPU, on a CUDA card (skipped
+without one). This file imports no JAX, so it also runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
@@ -554,3 +556,123 @@ def test_resize_on_card_matches_cpu(cuda_device, src, dst):
     got = _resize_chw(img, *dst, cuda_device)
     assert got.device.type == "cuda"
     assert (got.cpu() - _resize_chw(img, *dst, "cpu")).abs().max() <= 1e-5
+
+
+# ------------------------------------------------- text and image encoders
+
+
+def _encoder_case(name, gen):
+    """(module on the CPU, forward(module, device)) of one encoder at a
+    small f32 config, seeded."""
+    from jenga_tpu_torch.text import clip, llama, llava, t5, xlm_roberta
+    ids = torch.randint(300, 500, (2, 19), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, 13:] = 0
+    img = torch.randn((2, 3, 28, 28), generator=gen)
+    lcfg = llama.LlamaConfig(vocab_size=512, hidden_size=64,
+                             intermediate_size=128, num_layers=3,
+                             num_heads=4, num_kv_heads=2)
+    vcfg = clip.CLIPVisionConfig(image_size=28, patch_size=14,
+                                 hidden_size=64, intermediate_size=128,
+                                 num_layers=3, num_heads=4)
+    if name == "llama":
+        m = llama.init_llama_(llama.Llama(lcfg, dtype=torch.float32), gen)
+        return m, lambda m, d: llama.llama_hidden_states(
+            m, lcfg, ids.to(d), mask.to(d), num_layers=2)[-1]
+    if name == "clip_text":
+        cfg = clip.CLIPTextConfig(vocab_size=512, hidden_size=32,
+                                  intermediate_size=64, num_layers=2,
+                                  num_heads=2, eos_token_id=499)
+        m = clip.init_clip_text_(clip.CLIPText(cfg), gen)
+        return m, lambda m, d: clip.clip_text_encode(m, cfg, ids.to(d))[1]
+    if name == "clip_vision":
+        m = clip.init_clip_vision_(clip.CLIPVision(vcfg), gen)
+        return m, lambda m, d: clip.clip_vision_encode(
+            m, vcfg, img.to(d), use_31_block=True)
+    if name == "llava":
+        m = llava.init_llava_(llava.Llava(lcfg, vcfg, dtype=torch.float32),
+                              gen)
+        return m, lambda m, d: llava.llava_encode(
+            m, lcfg, ids.to(d), mask.to(d), img.to(d), 3,
+            vision_cfg=vcfg)[0][-1]
+    if name == "t5":
+        cfg = t5.T5Config(vocab_size=512, dim=64, dim_attn=64, dim_ffn=128,
+                          num_heads=2, num_layers=2)
+        m = t5.init_t5_(t5.T5Encoder(cfg, dtype=torch.float32), gen)
+        return m, lambda m, d: t5.t5_encode(m, cfg, ids.to(d), mask.to(d))
+    cfg = xlm_roberta.XLMRobertaConfig(vocab_size=512, max_positions=32,
+                                       dim=32, num_heads=2, num_layers=2,
+                                       ffn_dim=64)
+    m = xlm_roberta.init_xlm_roberta_(xlm_roberta.XLMRoberta(cfg), gen)
+    return m, lambda m, d: xlm_roberta.xlm_roberta_encode(m, cfg, ids.to(d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama", "clip_text", "clip_vision",
+                                  "llava", "t5", "xlm_roberta"])
+def test_encoder_on_card_matches_cpu(cuda_device, name):
+    """Each encoder at a small f32 config: the card's output against the
+    CPU's on the same weights, relative L2 <= 2e-2 (the smoke's bound)."""
+    module, forward = _encoder_case(name, torch.Generator().manual_seed(7))
+    want = forward(module, torch.device("cpu"))
+    got = forward(module.to(cuda_device), cuda_device).cpu()
+    rel = ((got.double() - want.double()).norm()
+           / want.double().norm()).item()
+    assert torch.isfinite(got).all() and rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,kw", [
+    ("hy", {}), ("hy", {"use_cpu_offload": True}), ("hy", {"use_fp8": True}),
+    ("wan_i2v", {}), ("wan_i2v", {"t5_on_host": True})])
+def test_from_pretrained_on_card_matches_cpu(cuda_device, tmp_path, model,
+                                             kw):
+    """The smoke's small reference-layout directories (chip_smoke.py):
+    every module tensor of the card's load equals the CPU's, placed as
+    asked, and the prompt encodes agree within 2e-2."""
+    import chip_smoke
+    from jenga_tpu_torch.runtime import HunyuanVideoSampler, WanSampler
+    cfgs = chip_smoke.small_configs()
+    dirs = chip_smoke.write_reference_dirs(str(tmp_path), cfgs)
+    with chip_smoke.small_published_configs(cfgs):
+        if model == "hy":
+            load = lambda dev: HunyuanVideoSampler.from_pretrained(  # noqa
+                dirs["hy"], device=dev, **kw)
+            card, cpu = load("cuda"), load("cpu")
+            aux = "cpu" if kw.get("use_cpu_offload") else "cuda"
+            parts = [(card.model, cpu.model, "cuda"),
+                     (card.vae, cpu.vae, aux),
+                     (card.text_encoder[2], cpu.text_encoder[2], aux),
+                     (card.text_encoder_2[2], cpu.text_encoder_2[2], aux)]
+            for s in (card, cpu):
+                chip_smoke._set_standins(hy=s)
+            outs = [s.encode_prompt(chip_smoke.PROMPT) for s in (card, cpu)]
+            pairs = [(outs[0][0], outs[1][0]), (outs[0][2], outs[1][2])]
+        else:
+            load = lambda dev: WanSampler.from_pretrained(  # noqa
+                "i2v-14B", dirs["wan_i2v"], device=dev, **kw)
+            card, cpu = load("cuda"), load("cpu")
+            parts = [(card.model, cpu.model, "cuda"),
+                     (card.vae, cpu.vae, "cuda"),
+                     (card.t5[2], cpu.t5[2],
+                      "cpu" if kw.get("t5_on_host") else "cuda"),
+                     (card.clip_vision[1], cpu.clip_vision[1], "cuda")]
+            for s in (card, cpu):
+                chip_smoke._set_standins(wan=s)
+            img = torch.rand((3, 40, 30), generator=torch.Generator()
+                             .manual_seed(3))
+            pairs = [(card.encode_prompt(chip_smoke.PROMPT),
+                      cpu.encode_prompt(chip_smoke.PROMPT)),
+                     (card.encode_image_clip(img),
+                      cpu.encode_image_clip(img))]
+    for a, b, dev in parts:
+        assert {p.device.type for p in a.parameters()} == {dev}
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert torch.equal(sa[k].cpu().reshape(-1).view(torch.uint8),
+                               sb[k].reshape(-1).view(torch.uint8)), k
+    for got, want in pairs:
+        rel = ((got.cpu().double() - want.double()).norm()
+               / want.double().norm()).item()
+        assert rel <= 2e-2, rel

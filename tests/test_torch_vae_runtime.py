@@ -119,7 +119,7 @@ def test_hy_runtime_vae_methods_match_jax(vaes):
     a 37x53 image at latent 6x8 (bicubic resize to 48x64, 2x-1, tiled
     encode, the mode, x scaling_factor) to [16, 1, 6, 8]."""
     jax_s = _jax_sampler("hy", vaes)
-    port = argparse.Namespace(vae=vaes["hy"][2])
+    port = argparse.Namespace(vae=vaes["hy"][2], offload=False)
     lat = np.random.default_rng(1).standard_normal((16, 3, 6, 8)).astype(
         np.float32)
     img = _image(37, 53)
@@ -386,17 +386,20 @@ def test_hy_i2v_image_path_matches_jax_cli(tmp_path, capsys, extra,
         jcli.run_hyvideo_i2v(jcli.build_parser().parse_args(argv))
     jax_out = capsys.readouterr().out
 
-    def port_sampler(cfg, **kw):
+    def port_sampler(*a, **kw):
         def predict_i2v(image_latents, txt, mask, txt2, opts, decode=True):
             seen["port"] = (opts, [np.asarray(a) for a in image_latents],
                             decode)
             raise _Captured
         return argparse.Namespace(
             pipeline=_PortPipe(), TEXT_LEN=8, predict_i2v=predict_i2v,
+            text_encoder=None, cfg=thy.HYVideoConfig(text_states_dim=8,
+                                                     text_states_dim_2=4),
             vae=object() if with_vae else None,
             encode_image_latent=encode("port"))
 
-    with mock.patch.object(truntime, "HunyuanVideoSampler", port_sampler), \
+    with mock.patch.object(truntime.HunyuanVideoSampler, "from_pretrained",
+                           staticmethod(port_sampler)), \
             pytest.raises(_Captured):
         tcli.run_hyvideo_i2v(tcli.build_parser().parse_args(argv))
     port_out = capsys.readouterr().out
