@@ -6,11 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints its seconds; any failure exits non-zero before the
 result line):
   1. toolchain: torch/CUDA versions, nvcc, the card's name and power
-     limit; builds all five kernel sources from jenga_tpu_torch/csrc/ (one
+     limit; builds all six kernel sources from jenga_tpu_torch/csrc/ (one
      nvcc per source, started together; sm_90a) and prints ptxas' resource
      use; fails if ptxas reports spill stores or loads in a production
-     instance (K1/K1m/K2 fixed and online max, D) or in P4, which has its
-     own Hopper design;
+     instance (K1/K1m/K2 fixed and online max, D, D's dK|dV and dQ
+     backward kernels) or in P4, which has its own Hopper design;
   2. kernels vs their plain torch versions on the card, max abs error
      <= 1e-2 in each case, each case timed against the plain version and
      beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
@@ -34,7 +34,15 @@ result line):
      two cross-attentions at 40 heads over 32,768 query rows: the 257 CLIP
      image keys (a ragged last key tile) and the 512 text keys, each with
      SDPA beside it. K1 also at Wan2.1-14B's self-attention shape (B=2, 40
-     heads, 256 blocks, joint q8 with first-frame forcing), with flex;
+     heads, 256 blocks, joint q8 with first-frame forcing), with flex.
+     D's backward (the dK|dV kernel, then the dQ kernel, from the forward
+     kernel's output and base-2 statistics) against the plain backward
+     at Wan's self-attention (2x12x32768), Wan 1.3B's cross-attention
+     over 512 keys, Wan2.1-14B's image cross-attention (2x40x32768 over
+     257 keys) and HunyuanVideo's joint dense shape with kv_len below Skv:
+     each gradient within 2e-2 relative L2 and its max abs error within
+     1e-2 of its largest element; each kernel, the pair and the plain
+     backward timed beside their bounds and the SDPA (flash) backward;
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
@@ -166,8 +174,10 @@ result line):
      seeded ids, "\n\n" to 271, <image> to 128257); encode_prompt (351
      ids -> [256, 4096] and pooled [768]) and encode_prompt_i2v on the
      720x1280 image (934 spliced tokens), finite and not constant; 4
-     token_replace steps on those states (K1 60 x computed steps, frame 0
-     bit-exact); whether a 1280x720x125f step fits beside the encoders;
+     token_replace steps on those states with the options `hyvideo-i2v
+     --preset base` builds (the pipeline takes ceil(tokens / 128) text
+     blocks; K1 60 x computed steps, frame 0 bit-exact); whether a
+     1280x720x125f step fits beside the encoders;
   14. (after 12b, on its sampler) UMT5-XXL and the CLIP-H tower seeded on
      the card in f32; T5 on the prompt (trimmed) and CLIP on a seeded
      480x832 image ([257, 1280]); generate_image(image, prompt, opts)
@@ -186,6 +196,28 @@ result line):
      a prompt through the encoders, 2 steps and the VAE to a video.
      Phases 13-15 print their seconds, peak memory and the card's name
      and power limit, and a ``prompt:`` line gathers them.
+  16. LoRA fine-tuning through make_lora_train_step on Wan2.1-T2V-1.3B at
+     full width and depth (seeded init, head perturbed), bf16: seeded
+     latents 16x21x60x104 (832x480x81f, 32,760 tokens, B=1) written as
+     .npy with JSON metadata and read through LatentDataset, seeded text
+     states over 512 keys, rank-16 adapters on DEFAULT_TARGETS, remat,
+     AdamW; 3 dense steps (D and its backward on self- and
+     cross-attention: per step D 120, dK|dV 60, dQ 60), then 2 carved
+     steps with the Base stage-1 carve (drop 0.75, p_remain 0.9, joint
+     q8; K1 60, D 60, dK|dV 30, dQ 30: the recompute backward on the
+     self-attention). Each step prints its seconds, loss, the LoRA
+     gradient's norm, peak memory and launches, and fails unless loss and
+     norm are finite and positive and the counts as stated. Then
+     export_kohya -> merge_lora (on the CPU) -> a carved forward with the
+     merged weights against the functional apply_lora forward, within
+     2e-2 relative L2;
+  16b. the same on HunyuanVideo-I2V token_replace at full width (3072,
+     24 heads) cut to 2 + 4 blocks, 1280x720x33f, seeded conditioning and
+     text (256 tokens, 40 padded): one carved step (the Base carve with
+     the Turbo stage-0 text_amp 0.431, so the joint text rows and the
+     bias are inside the recompute backward; K1 12) and one dense-fallback
+     step (D 12, dK|dV 6, dQ 6 over the padded text's kv_len). A
+     ``train:`` line gathers phases 16-16b.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -222,6 +254,13 @@ POOL_TOL = 1e-4     # P3: f32 sums of 128 bf16 values, in another order
 # several percent.
 KERNEL_REL_TOL = 2e-2
 PROBE_REL_TOL = KERNEL_REL_TOL
+# D's backward cases: besides KERNEL_REL_TOL, each gradient's max abs
+# error within 1e-2 of its largest element. The gradients are sums over
+# every query (dK, dV) or key (dQ), so their scale follows the shape (dK
+# over 512 keys reaches |4| where bf16 storage alone rounds by 0.008);
+# P and dS are rounded to bf16 before their products, ~2^-9 relative,
+# while a masking or tiling fault moves whole rows by their own size.
+BWD_ABS_TOL = 1e-2
 PEAK_FLOPS = 989e12     # H100 SXM bf16 dense tensor-core peak
 PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
@@ -311,13 +350,16 @@ def phase_toolchain():
     print(nvcc.stdout.strip().splitlines()[-1])
     print(f"gpu: {gpu_line()}")
     tb = time.perf_counter()
-    mods = (bsa, fa, ap, bp, xr)
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        libs = list(pool.map(lambda m: m.build_kernel(), mods))
-    print(f"built all {len(mods)} kernel sources in "
+    # (source, build function, production): spills fail the production ones
+    sources = [(m.KERNEL_SOURCE, m.build_kernel, m in (bsa, fa, xr))
+               for m in (bsa, fa, ap, bp, xr)]
+    sources.append((fa.BWD_KERNEL_SOURCE, fa.build_bwd_kernel, True))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda e: e[1](), sources))
+    print(f"built all {len(sources)} kernel sources in "
           f"{time.perf_counter() - tb:.3f} s")
-    for mod, lib in zip(mods, libs):
-        print(f"   {os.path.relpath(mod.KERNEL_SOURCE, ROOT)} -> "
+    for (source, _, production), lib in zip(sources, libs):
+        print(f"   {os.path.relpath(source, ROOT)} -> "
               f"{os.path.relpath(lib._name, ROOT)}")
         log = open(os.path.join(os.path.dirname(lib._name),
                                 "ptxas.log")).read()
@@ -327,11 +369,10 @@ def phase_toolchain():
                 print(f"   ptxas: {line.strip()}")
         spills = [(int(st), int(ld)) for st, ld in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-        if mod in (bsa, fa, xr) and (not spills or any(st or ld for st, ld
-                                                       in spills)):
-            fail(f"{mod.KERNEL_SOURCE.name}: ptxas reports spills (or no "
-                 f"spill line) in a production or redesigned instance: "
-                 f"{spills}")
+        if production and (not spills or any(st or ld for st, ld
+                                             in spills)):
+            fail(f"{source.name}: ptxas reports spills (or no spill line) "
+                 f"in a production or redesigned instance: {spills}")
     done(t0)
 
 
@@ -446,6 +487,93 @@ def _dense_case(name, q, k, v, kv_len=None):
     print(f"   {json.dumps(rec)}", flush=True)
     _check(name, rec)
     return rec, out
+
+
+def _sdpa_bwd_ms(q, k, v, do):
+    """ms of the SDPA (flash) backward alone on the same operands: dq, dk
+    and dv from one retained graph. A yardstick only, never on the path."""
+    import torch
+    from jenga_tpu_torch.tools.library_baseline import sdpa_flash
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sdpa_flash(qg, kg, vg)
+    return time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 10)
+
+
+def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
+    """D's backward kernels (dK|dV, then dQ) against the plain backward on
+    the card's own forward output and statistics: max abs and relative L2
+    error of each gradient, ms of each kernel and of the pair through the
+    wrapper (with di and the padded statistics), the plain backward's ms,
+    the bounds, and the SDPA backward's ms where SDPA takes the case (no
+    per-sample key length)."""
+    import torch
+    from jenga_tpu_torch.ops import flash_attention as fa
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    o, lse = fa.dense_attention_forward(q, k, v, kv_len=kv_len,
+                                        with_lse=True)
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    got = fa.dense_attention_backward(q, k, v, o, lse, do, kv_len=kv_len)
+    torch.cuda.synchronize()
+    ref = fa.dense_attention_backward_plain(q.float(), k.float(), v.float(),
+                                            o.float(), lse, do.float(),
+                                            kv_len=kv_len)
+    errs = {g: {**_errors(f"{name} {g}", x, y),
+                "ref_max": y.abs().max().item()}
+            for g, x, y in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    keys = b * skv if kv_len is None else sum(
+        min(max(int(x), 0), skv) for x in kv_len.tolist())
+    pairs = h * sq * keys * d       # (query, valid key, dim) products
+    rec = {"kernel": "dense_attn_bwd", "case": name, "q": list(q.shape),
+           "kv": list(k.shape),
+           "kv_len": None if kv_len is None else kv_len.tolist(),
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "rel_err": max(e["rel_err"] for e in errs.values()),
+           "errors": errs}
+    # each kernel alone on the wrapper's own operands
+    sq_pad = -(-sq // 128) * 128
+    lse_p = fa._padded_rows(lse, sq_pad, float("inf"))
+    di_p = fa._padded_rows((do.float() * o.float()).sum(-1), sq_pad, 0.0)
+    kl = fa._kv_len_int32(kv_len, b, q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lib = fa.build_bwd_kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse_p.data_ptr(), di_p.data_ptr(),
+              None if kl is None else kl.data_ptr())
+    tail = (b * h, h, sq, skv, d ** -0.5, stream)
+    rec["dkv_ms"] = time_ms(lambda: lib.dense_attn_bwd_dkv(
+        *common, dk.data_ptr(), dv.data_ptr(), *tail), 10)
+    rec["dq_ms"] = time_ms(lambda: lib.dense_attn_bwd_dq(
+        *common, dq.data_ptr(), *tail), 10)
+    rec["ms"] = time_ms(lambda: fa.dense_attention_backward(
+        q, k, v, o, lse, do, kv_len=kv_len), 10)
+    rec["plain_ms"] = time_ms(lambda: fa.dense_attention_backward_plain(
+        q, k, v, o, lse, do, kv_len=kv_len), 2)
+    # products and bf16 tensors read or written once: dkv S, dP, dV, dK
+    # (q do k v -> dk dv); dq S, dP, dQ (q do k v -> dq); the pair S, dP,
+    # dV, dK, dQ (q o do k v -> dq dk dv, o for di)
+    nq, nk = q.numel(), k.numel()
+    for key, gemms, tensors in (("dkv", 4, 2 * nq + 4 * nk),
+                                ("dq", 3, 3 * nq + 2 * nk),
+                                ("pair", 5, 4 * nq + 4 * nk)):
+        rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bound(
+            2.0 * gemms * pairs, 2 * tensors)
+    rec["bound_ms"], rec["bound_by"] = rec["pair_bound_ms"], \
+        rec["pair_bound_by"]
+    rec["library_ms"] = (None if kv_len is not None else
+                         _sdpa_bwd_ms(q, k, v, do))
+    print(f"   {json.dumps(rec)}", flush=True)
+    for g, e in errs.items():
+        if not (e["max_abs_err"] <= BWD_ABS_TOL * e["ref_max"]
+                and e["rel_err"] <= KERNEL_REL_TOL):
+            fail(f"{name} {g}: max abs error {e['max_abs_err']} (bound "
+                 f"{BWD_ABS_TOL} x {e['ref_max']}), relative error "
+                 f"{e['rel_err']} (bound {KERNEL_REL_TOL})")
+    return rec
 
 
 def _planner_mask(q, k, nkb, tsb, sel_group, **kw):
@@ -650,6 +778,25 @@ def phase_kernel_cases():
         dense.append(extra[name])
         del k, v
     del q
+    # D's backward (dK|dV and dQ kernels): (a) Wan self-attention, (b) Wan
+    # 1.3B cross-attention over 512 keys, (c) Wan2.1-14B's image
+    # cross-attention over 257 keys, (d) HunyuanVideo's joint dense shape
+    # with kv_len below Skv (the padded text)
+    bwd = []
+    q, k, v = _qkv(gen, 2, 12, 32768)
+    bwd.append(_dense_bwd_case("a_wan_self", gen, q, k, v))
+    _, k, v = _qkv(gen, 2, 12, 512)
+    bwd.append(_dense_bwd_case("b_wan_cross", gen, q, k, v))
+    del q, k, v
+    q, k, v = _qkv(gen, 2, 40, 32768, skv=257)
+    bwd.append(_dense_bwd_case("c_wan14b_image_cross", gen, q, k, v))
+    del q, k, v
+    s = 32656
+    q, k, v = _qkv(gen, 1, 24, s)
+    kl = torch.tensor([s - 40], dtype=torch.int32, device="cuda")
+    bwd.append(_dense_bwd_case("d_hy_joint_dense", gen, q, k, v, kl))
+    del q, k, v
+    extra["bwd"] = bwd
     torch.cuda.empty_cache()
     done(t0)
     return recs, main, member, dense, extra
@@ -689,14 +836,16 @@ def _text(gen, cfg, n_pad):
 
 PROBES = ("attn_probe_split", "attn_probe_epilogue", "block_pool",
           "cross_attn_resident")   # P1-P4: no main path launches them
-NO_PROBES = dict.fromkeys(PROBES, 0)
+BWD = ("dense_attn_bwd_dkv", "dense_attn_bwd_dq")   # only training does
+NOT_SERVING = dict.fromkeys(PROBES + BWD, 0)
 
 
 class _Launches:
     """The kernels' launch counts over one path's run: set to 0 on entry,
     read on exit. The block-sparse wrapper counts its all-member launches
     (K1/K2) and its membership-mode launches (K1m) apart, the probe
-    wrapper its P1 and P2 launches."""
+    wrapper its P1 and P2 launches, D's backward its dK|dV and dQ
+    launches."""
 
     def __enter__(self):
         from jenga_tpu_torch.ops.attention_probe import attention_probe
@@ -705,12 +854,15 @@ class _Launches:
             block_sparse_attention)
         from jenga_tpu_torch.ops.cross_attention_resident import (
             cross_attention_resident)
-        from jenga_tpu_torch.ops.flash_attention import dense_attention
+        from jenga_tpu_torch.ops.flash_attention import (
+            dense_attention, dense_attention_backward)
         self.counters = {
             "block_sparse_attn": (block_sparse_attention, "launches"),
             "block_sparse_attn_members": (block_sparse_attention,
                                           "member_launches"),
             "dense_attn": (dense_attention, "launches"),
+            "dense_attn_bwd_dkv": (dense_attention_backward, "dkv_launches"),
+            "dense_attn_bwd_dq": (dense_attention_backward, "dq_launches"),
             "attn_probe_split": (attention_probe, "split_launches"),
             "attn_probe_epilogue": (attention_probe, "epilogue_launches"),
             "block_pool": (block_pool, "launches"),
@@ -878,7 +1030,7 @@ def phase_hy_turbo(sampler, txt, mask, txt2):
     expect = {"block_sparse_attn": 0,
               "block_sparse_attn_members":
                   computed * (cfg.double_blocks + cfg.single_blocks),
-              "dense_attn": 0, **NO_PROBES}
+              "dense_attn": 0, **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x 60 blocks, all in the membership mode)")
@@ -917,7 +1069,7 @@ def _wan_run(sampler, opts, kinds, ctx, null):
     expect = {"block_sparse_attn": cfg.num_layers * n_carved,
               "block_sparse_attn_members": 0,
               "dense_attn": cfg.num_layers * (2 * n_dense + n_carved),
-              **NO_PROBES}
+              **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {cfg.num_layers} layers)")
@@ -1043,7 +1195,8 @@ def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape,
               f"steps")
     blocks = cfg.double_blocks + cfg.single_blocks
     expect = {"block_sparse_attn": computed * blocks,
-              "block_sparse_attn_members": 0, "dense_attn": 0, **NO_PROBES}
+              "block_sparse_attn_members": 0, "dense_attn": 0,
+              **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} computed "
              f"steps x {blocks} blocks)")
@@ -1185,7 +1338,7 @@ def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape,
     expect = {"block_sparse_attn": layers * n_carved,
               "block_sparse_attn_members": 0,
               "dense_attn": layers * n_dense
-              + 2 * layers * (n_dense + n_carved), **NO_PROBES}
+              + 2 * layers * (n_dense + n_carved), **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
@@ -1336,6 +1489,52 @@ def phase_probes():
         _check(name, r, PROBE_REL_TOL)
     done(t0)
     return {"counts": run.counts, "p1": r1, "p2": r2, "p3": r3, "p4": r4}
+
+
+STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+
+
+def _bwd_entries(bwd, runs):
+    """The kernels-line entries of D's two backward kernels: errors over
+    all four phase-2 cases; ms, bounds, the plain backward's ms (it
+    computes dq, dk and dv together) and the SDPA backward's ms (dq, dk
+    and dv together) at Wan's self-attention, each case's beside them."""
+    wan_self = bwd[0]
+    out = []
+    for name, key, line, kernel_line, call_line in (
+            ("dense_attn_bwd_dkv", "dkv", 941, 796, 1121),
+            ("dense_attn_bwd_dq", "dq", 1287, 1146, 1456)):
+        by_path = {path: c[name] for path, c in runs.items()}
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "jenga_tpu_torch/csrc/dense_attn_bwd.cu",
+            "replaces": f"{STOCK_FLASH}:{line}",
+            "replaces_kernel": f"{STOCK_FLASH}:{kernel_line}, pallas_call "
+                               f":{call_line}, reached from "
+                               f"jenga_tpu/ops/flash_attention.py:92",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["errors"][g]["max_abs_err"] for r in bwd
+                               for g in (("dk", "dv") if key == "dkv"
+                                         else ("dq",))),
+            "rel_err": max(r["errors"][g]["rel_err"] for r in bwd
+                           for g in (("dk", "dv") if key == "dkv"
+                                     else ("dq",))),
+            "ms": wan_self[f"{key}_ms"],
+            "ms_of": f"Wan self-attention {wan_self['q']}",
+            "plain_ms": wan_self["plain_ms"],
+            "bound_ms": wan_self[f"{key}_bound_ms"],
+            "bound_by": wan_self[f"{key}_bound_by"],
+            "library_ms": wan_self["library_ms"],
+            "library_of": "SDPA (flash) backward, dq dk dv together",
+            "pair_ms": wan_self["ms"],
+            "pair_bound_ms": wan_self["pair_bound_ms"],
+            "cases": {r["case"]: {k: r[k] for k in (
+                f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by", "ms",
+                "pair_bound_ms", "plain_ms", "library_ms")} for r in bwd},
+        })
+    return out
 
 
 def _probe_entries(probes, runs):
@@ -1557,7 +1756,8 @@ def phase_hy_fp8(ref_weights, bf16_peak):
     _check_latents(lat, (16, 9, 90, 160))
     layers_n = cfg.double_blocks + cfg.single_blocks
     expect = {"block_sparse_attn": computed * layers_n,
-              "block_sparse_attn_members": 0, "dense_attn": 0, **NO_PROBES}
+              "block_sparse_attn_members": 0, "dense_attn": 0,
+              **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x {layers_n} blocks)")
@@ -1681,7 +1881,7 @@ def phase_fidelity():
     n_carved = sum(p.count("carved") for p in plans.values())
     expect = {"block_sparse_attn": layers * n_carved,
               "block_sparse_attn_members": 0,
-              "dense_attn": layers * (2 * n_dense + n_carved), **NO_PROBES}
+              "dense_attn": layers * (2 * n_dense + n_carved), **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
@@ -1998,6 +2198,7 @@ def phase_hy_prompt(sampler, img, img_lats, gen):
     import numpy as np
     import torch
     from jenga_tpu_torch.configs.presets import get_hy_i2v_options
+    from jenga_tpu_torch.pipelines.hyvideo_i2v import text_block_count
     from jenga_tpu_torch.text.clip import (CLIP_L_TEXT, CLIP_L_VISION_336,
                                           CLIPText, init_clip_text_)
     from jenga_tpu_torch.text.llama import LlamaConfig
@@ -2062,13 +2263,15 @@ def phase_hy_prompt(sampler, img, img_lats, gen):
     print(f"   encode seconds: T2V prompt {t2v_s:.3f} (351 ids), I2V prompt "
           f"{i2v_s:.3f} (934 spliced tokens); peak {enc_peak:.2f} GiB; "
           f"{int(mask.sum())} of {mask.numel()} tokens unmasked")
-    # txt_block_num 4, the I2V default: the llava states (144 image + up
-    # to 256 text tokens) overrun the 2 text blocks that `hyvideo-i2v
-    # --preset base` merges in from the T2V preset, and the planner fails
-    # on them in both packages (ROADMAP Queue 3)
+    # the options `hyvideo-i2v --preset base` builds (txt_block_num 2 from
+    # the T2V preset): generate_i2v takes ceil(tokens / 128) text blocks
+    # for the llava states (144 image + up to 256 text tokens), where 2
+    # would leave the planner more video rows than video blocks
     opts = get_hy_i2v_options("base", size=(1280, 720), video_length=33,
-                              num_inference_steps=4, txt_block_num=4,
+                              num_inference_steps=4,
                               i2v_condition_type="token_replace")
+    print(f"   text blocks: {text_block_count(txt)} for {txt.shape[0]} "
+          f"tokens (the options carry {opts.txt_block_num})")
     run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
                       (16, 9, 90, 160))
     free = total - torch.cuda.memory_allocated() / 2**30
@@ -2824,6 +3027,211 @@ def phase_checkpoints():
             "peak_gib": peak}
 
 
+# ------------------------------------------- phases 16-16b: LoRA training
+
+
+def _counts(**nonzero):
+    """Every counter of ``_Launches`` at 0 but the ones given."""
+    return {"block_sparse_attn": 0, "block_sparse_attn_members": 0,
+            "dense_attn": 0, **NOT_SERVING, **nonzero}
+
+
+def _lora_grad_norm(lora) -> float:
+    return math.sqrt(sum(float(x.grad.float().square().sum())
+                         for ab in lora.values() for x in ab.values()
+                         if x.grad is not None))
+
+
+def _train_steps(label, step, lora, base, batch, gen, n, expect):
+    """``n`` LoRA steps, each counted on its own: seconds, loss, the LoRA
+    gradient's norm, peak memory and the launches per step; fails on a
+    loss or norm that is not finite and positive, or on counts other than
+    ``expect``."""
+    import torch
+    rows, total = [], dict.fromkeys(expect, 0)
+    for i in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        with _Launches() as run:
+            loss = float(step(lora, base, batch, gen))
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - ts
+        norm = _lora_grad_norm(lora)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {k: v for k, v in run.counts.items() if v}
+        print(f"   {label} step {i}: {secs:.3f} s, loss {loss:.6f}, LoRA "
+              f"grad norm {norm:.6e}, peak {peak:.2f} GiB, launches "
+              f"{counts}", flush=True)
+        if not (math.isfinite(loss) and loss > 0 and math.isfinite(norm)
+                and norm > 0):
+            fail(f"{label} step {i}: loss {loss}, LoRA grad norm {norm}")
+        if run.counts != expect:
+            fail(f"{label} step {i}: launches {run.counts} != {expect}")
+        rows.append({"s": secs, "loss": loss, "grad_norm": norm,
+                     "peak_gib": peak})
+        total = {k: total[k] + v for k, v in run.counts.items()}
+    return {"steps": rows, "launches": total}
+
+
+def phase_train_wan():
+    """Phase 16: LoRA fine-tuning of Wan2.1-T2V-1.3B at full width and
+    depth through make_lora_train_step: 3 dense steps, 2 carved steps,
+    then the adapters exported to kohya and merged against the functional
+    merge."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    from jenga_tpu_torch import convert as C
+    from jenga_tpu_torch.models.wan import (WAN_T2V_1_3B, WanDiT, init_wan_,
+                                            make_wan_carve)
+    from jenga_tpu_torch.train import TransportConfig, make_lora_train_step
+    from jenga_tpu_torch.train.dataset import LatentDataset
+    from jenga_tpu_torch.train.lora import (apply_lora, export_kohya,
+                                            init_lora, lora_param_count,
+                                            lora_tensors)
+    t0 = phase("16. LoRA fine-tuning: Wan2.1-T2V-1.3B, full width and depth,"
+               " 832x480x81f, rank 16, remat, AdamW")
+    cfg = WAN_T2V_1_3B
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    model = init_wan_(WanDiT(cfg, device="cuda"), gen)
+    _perturb_wan(model, gen)
+    lat_shape = (16, 21, 60, 104)
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(16)
+        jdir = os.path.join(tmp, "jsons")
+        os.mkdir(jdir)
+        npy = os.path.join(tmp, "clip0.npy")
+        np.save(npy, rng.standard_normal(lat_shape).astype(np.float32))
+        with open(os.path.join(jdir, "clip0.json"), "w") as f:
+            json.dump({"video_id": "clip0", "latent_shape": list(lat_shape),
+                       "prompt": PROMPT, "npy_save_path": npy}, f)
+        data = next(LatentDataset(jdir).batches(1, np.random.default_rng(0)))
+    batch = {"latents": torch.as_tensor(data["latents"], device="cuda"),
+             "context": torch.randn((1, cfg.text_len, cfg.text_dim),
+                                    generator=gen, device="cuda")}
+    lora = init_lora(gen, model, rank=16)
+    base = dict(model.named_parameters())
+    opt = torch.optim.AdamW(lora_tensors(lora), lr=1e-4, weight_decay=1e-4)
+    tcfg = TransportConfig(shift=5.0)
+    print(f"   {len(lora)} adapters, {lora_param_count(lora)} LoRA "
+          f"parameters on {sum(p.numel() for p in base.values())} frozen; "
+          f"latents {tuple(batch['latents'].shape)} from LatentDataset, "
+          f"{cfg.text_len} text keys", flush=True)
+    layers = cfg.num_layers
+    carve = make_wan_carve(cfg, WAN_GRID, 0.75, 0.9, q_rows=8,
+                           joint_sel=True, device="cuda")
+    runs = {}
+    # with remat each block's forward runs twice: D on self and cross
+    # attention (dense) or K1 on self and D on cross (carved), each
+    # launched again in the recompute; the backward launches dkv and dq
+    # once per dense attention
+    for label, cv, n, expect in (
+            ("dense", None, 3, _counts(
+                dense_attn=4 * layers, dense_attn_bwd_dkv=2 * layers,
+                dense_attn_bwd_dq=2 * layers)),
+            ("carved", carve, 2, _counts(
+                block_sparse_attn=2 * layers, dense_attn=2 * layers,
+                dense_attn_bwd_dkv=layers, dense_attn_bwd_dq=layers))):
+        def apply(p, xt, t, b, cv=cv):
+            return functional_call(model, p, (xt, t, b["context"]),
+                                   {"carve": cv, "remat": True})
+        step = make_lora_train_step(apply, tcfg, opt)
+        runs[label] = _train_steps(f"16 {label}", step, lora, base, batch,
+                                   gen, n, expect)
+
+    # the adapters through the reference's kohya layout and merge_lora
+    # (on the CPU, as a checkpoint load merges) against apply_lora
+    prefix = "Hunyuan_video_I2V"
+    kohya = export_kohya(lora, prefix=prefix)
+    keys = {name: C._kohya_to_module_key(
+        f"{prefix}_lora_" + name.replace(".", "_"), prefix) + ".weight"
+        for name in lora}
+    sd = C.merge_lora({keys[name]: base[f"{name}.w"].detach().cpu()
+                       for name in lora}, kohya, prefix=prefix)
+    with torch.no_grad():
+        merged = apply_lora(base, lora)
+        loaded = dict(base)
+        loaded.update({f"{name}.w": sd[keys[name]].to("cuda")
+                       for name in lora})
+        equal = sum(torch.equal(loaded[f"{n}.w"], merged[f"{n}.w"])
+                    for n in lora)
+        x = batch["latents"]
+        tt = torch.full((1,), 500.0, device="cuda")
+        want = functional_call(model, merged, (x, tt, batch["context"]),
+                               {"carve": carve})
+        got = functional_call(model, loaded, (x, tt, batch["context"]),
+                              {"carve": carve})
+    rel = _rel(got, want)
+    print(f"   export_kohya -> merge_lora: {equal} of {len(lora)} merged "
+          f"weights bit-equal to apply_lora's; carved forward relative L2 "
+          f"{rel:.3e} (bound {E2E_REL_TOL})")
+    if not (torch.isfinite(got).all() and rel <= E2E_REL_TOL):
+        fail(f"16: the kohya-merged forward is {rel} from apply_lora's")
+    print(f"   gpu: {gpu_line()}")
+    del model, base, lora, opt, merged, loaded, sd, got, want, batch
+    _free()
+    done(t0)
+    return {**runs, "merge_rel": rel, "merge_equal": equal,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train_hy_i2v():
+    """Phase 16b: LoRA fine-tuning of HunyuanVideo-I2V token_replace at
+    full width cut to 2 + 4 blocks, 1280x720x33f: one carved step and one
+    dense-fallback step."""
+    import torch
+    from torch.func import functional_call
+    from jenga_tpu_torch.models.hyvideo import (HYVideoDiT, hy_i2v_config,
+                                                init_hyvideo_, make_hy_carve)
+    from jenga_tpu_torch.train import TransportConfig, make_lora_train_step
+    from jenga_tpu_torch.train.lora import (init_lora, lora_param_count,
+                                            lora_tensors)
+    t0 = phase("16b. LoRA fine-tuning: HunyuanVideo-I2V token_replace, full "
+               "width, 2 + 4 blocks, 1280x720x33f, rank 16, remat, AdamW")
+    cfg = dataclasses.replace(hy_i2v_config("token_replace"),
+                              double_blocks=2, single_blocks=4)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    model = init_hyvideo_(HYVideoDiT(cfg, device="cuda"), gen)
+    _perturb(model, gen)
+    lat = torch.randn((1, 16, 9, 90, 160), generator=gen, device="cuda")
+    txt, mask, txt2 = _text(gen, cfg, n_pad=40)
+    batch = {"latents": lat, "cond_latents": lat[:, :, :1],
+             "txt": txt[None], "mask": mask[None], "txt2": txt2[None],
+             "guidance": torch.full((1,), 6000.0, device="cuda")}
+    lora = init_lora(gen, model, rank=16)
+    base = dict(model.named_parameters())
+    opt = torch.optim.AdamW(lora_tensors(lora), lr=1e-4, weight_decay=1e-4)
+    print(f"   {len(lora)} adapters, {lora_param_count(lora)} LoRA "
+          f"parameters; 32,400 video + 256 text tokens (216 valid)",
+          flush=True)
+    blocks = cfg.double_blocks + cfg.single_blocks
+    # the Base preset's stage-1 selection with the Turbo stage-0 text
+    # amplitude, so that text_amp is inside the recompute backward
+    carve = make_hy_carve(cfg, (9, 45, 80), 0.75, 0.3, text_amp=HY_AMP0,
+                          txt_block_num=2, q_rows=8, joint_sel=True,
+                          device="cuda")
+    runs = {}
+    for label, cv, expect in (
+            ("carved", carve, _counts(block_sparse_attn=2 * blocks)),
+            ("dense", None, _counts(dense_attn=2 * blocks,
+                                    dense_attn_bwd_dkv=blocks,
+                                    dense_attn_bwd_dq=blocks))):
+        def apply(p, xt, t, b, cv=cv):
+            return functional_call(
+                model, p, (xt, t, b["txt"], b["mask"], b["txt2"]),
+                {"carve": cv, "guidance": b["guidance"], "remat": True})
+        step = make_lora_train_step(apply, TransportConfig(shift=7.0), opt,
+                                    i2v_condition_type="token_replace")
+        runs[label] = _train_steps(f"16b {label}", step, lora, base, batch,
+                                   gen, 1, expect)
+    print(f"   gpu: {gpu_line()}")
+    del model, base, lora, opt, batch
+    _free()
+    done(t0)
+    return {**runs, "seconds": time.perf_counter() - t0}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2852,6 +3260,8 @@ def main():
     wan_vae, wan_i2v_vae, wan_prompt = phase_wan_vae(wan.pop("latents"),
                                                      wan_i2v_plan)
     ckpt = phase_checkpoints()
+    train = phase_train_wan()
+    train_hy = phase_train_hy_i2v()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -2870,7 +3280,11 @@ def main():
             "hyvideo_i2v_token_replace_vae": hy_i2v_vae["launches"],
             "wan_i2v_14b_vae": wan_i2v_vae["launches"],
             "hyvideo_i2v_prompt": hy_prompt["launches"],
-            "wan_i2v_14b_prompt": wan_prompt["launches"]}
+            "wan_i2v_14b_prompt": wan_prompt["launches"],
+            "train_wan_1.3b_dense": train["dense"]["launches"],
+            "train_wan_1.3b_carved": train["carved"]["launches"],
+            "train_hyvideo_i2v_carved": train_hy["carved"]["launches"],
+            "train_hyvideo_i2v_dense": train_hy["dense"]["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -2957,7 +3371,7 @@ def main():
         "cross14b_library_ms": extra["f_wan14b_text_cross"]["library_ms"],
         "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"],
                            rel["hy_i2v_tr_dense"], rel["wan_i2v_dense"]),
-    }] + _probe_entries(probes, runs)}
+    }] + _bwd_entries(extra["bwd"], runs) + _probe_entries(probes, runs)}
     vae = {name: {k: v for k, v in rec.items()
                   if k not in ("launches", "step_s", "schedule")}
            for name, rec in (("11_hy_decode", hy_vae),
@@ -2971,6 +3385,8 @@ def main():
         "14_wan_prompt": {k: v for k, v in wan_prompt.items()
                           if k not in ("launches", "step_s", "schedule")},
         "15_checkpoints": ckpt}))
+    print("train: " + json.dumps({"16_wan_1.3b": train,
+                                  "16b_hyvideo_i2v": train_hy}))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

@@ -33,6 +33,10 @@ torch-style ``[out, in]``, and the bridge transposes every 2-D ``w`` /
 loads into a port module quantized the same way). Every leaf keeps its
 dtype (bf16 and e4m3 leaves arrive as ml_dtypes arrays).
 
+``lora_from_jax`` carries a JAX LoRA adapter tree (``jenga_tpu.train``'s
+``{path: {"a", "b"}}``) across to the port's module paths, so that both
+packages can train the same adapters.
+
 ``save_params`` / ``load_params`` keep a module's state dict in an
 ``.npz`` (bf16 as a uint16 view, e4m3 as a uint8 view). The JAX
 package's orbax pair is not ported (orbax is JAX's checkpoint library).
@@ -55,7 +59,7 @@ __all__ = ["hyvideo_params_from_jax", "wan_params_from_jax",
            "t5_params_from_jax", "xlm_roberta_params_from_jax",
            "load_torch_state_dict", "read_safetensors",
            "load_safetensors_state_dict", "load_fp8_state_dict",
-           "merge_lora", "convert_hyvideo_dit", "convert_wan_dit",
+           "merge_lora", "lora_from_jax", "convert_hyvideo_dit", "convert_wan_dit",
            "convert_hyvae", "convert_wanvae", "save_params", "load_params"]
 
 
@@ -119,6 +123,21 @@ def wanvae_params_from_jax(tree) -> dict[str, torch.Tensor]:
     the per-frame 2-D convs, among them the attention's ``qkv``/``proj``
     (1x1, 4-D, so the 2-D rule never transposes them)."""
     return hyvideo_params_from_jax(tree)
+
+
+def lora_from_jax(tree) -> dict:
+    """A JAX adapter tree -> the port's ``{module path: {"a", "b"}}``: the
+    path's slashes become dots (Wan's ``head`` the module ``head_layer``);
+    ``a`` [rank, in] and ``b`` [out, rank] carry over unchanged, as leaf
+    tensors that require grad."""
+    out = {}
+    for path, ab in tree.items():
+        name = path.replace("/", ".")
+        if name.split(".")[0] == "head":
+            name = "head_layer" + name[len("head"):]
+        out[name] = {k: _to_tensor(v).requires_grad_()
+                     for k, v in ab.items()}
+    return out
 
 
 # The encoder trees (``jenga_tpu.text``) follow the same rule: every 2-D

@@ -105,7 +105,10 @@ enum class KeyMask {
 
 // Everything but the tensor maps. The block-sparse kernel reads the lists
 // (group `query_block / q_rows`), the dense kernel kv_len; q_valid rows of
-// a query block are stored.
+// a query block are stored. The dense kernel also stores each stored row's
+// log-sum-exp of its base-2 logits, m + log2(l), where `lse` is not null
+// (the backward's statistics; +inf for a row with no key), and leaves the
+// padded rows of the last query block untouched.
 struct Params {
   __nv_bfloat16* o;        // [BH, sq, D]
   const int* lists;        // [BH, ngroups, nkb]
@@ -114,6 +117,7 @@ struct Params {
   const int* seqlens;      // [B]
   const float* maxk;       // [BH] max key norm (fixed max)
   const int* kv_len;       // [B] or null (dense)
+  float* lse;              // [BH, nqb * BM] base-2 log-sum-exp, or null
   int heads, sq, skv, nkb, ngroups, q_rows, tsb;
   float sm_scale, text_amp;
 };
@@ -200,11 +204,12 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[8][4]) {
+template <int M, int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[M][N]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+    for (int e = 0; e < N; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle. K-major operands (Q,
@@ -561,6 +566,9 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq,
       const int r = r0 + 8 * rr;
       if (r >= q_valid) continue;
       const float inv = l == 0.f ? 0.f : 1.f / l;
+      if (DENSE && p.lse != nullptr && t == 0)
+        p.lse[((size_t)bh * gridDim.x + qb) * BM + r] =
+            l == 0.f ? INFINITY : m_row[rr] + log2f(l);
       __nv_bfloat16* orow = out + (size_t)r * D + 2 * t;
 #pragma unroll
       for (int nb = 0; nb < 16; ++nb)
@@ -600,16 +608,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over bf16 [bh, rows, D] with 128 x 64 boxes, 128-byte swizzle;
-// rows past `rows` read as zeros.
-inline bool make_map(CUtensorMap* map, const void* base, int bh, int rows) {
+// A 3-D map over bf16 [bh, rows, D] with box_rows x 64 boxes, 128-byte
+// swizzle; rows past `rows` read as zeros.
+inline bool make_map(CUtensorMap* map, const void* base, int bh, int rows,
+                     int box_rows = BN) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {BOX_COLS, BN, 1};
+  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

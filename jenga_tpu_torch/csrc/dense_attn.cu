@@ -27,6 +27,13 @@
 // query rows past Sq (not stored) and key rows past Skv (masked with the
 // keys past kv_len), never reading the next head's rows.
 //
+// For the backward (dense_attn_bwd.cu) it also stores each row's
+// log-sum-exp in the units of its exp2: lse_i = m_i + log2(l_i), +inf for
+// a row with no valid key, into `lse` [bh, ceil(Sq / 128) * 128] when that
+// pointer is not null (the residuals of the stock kernel's
+// `_flash_attention_fwd`, flash_attention.py:234, which keeps l and m
+// apart). Serving passes null and stores nothing more.
+//
 // Plain C interface (loaded with ctypes); the launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
@@ -43,11 +50,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" int dense_attn_forward(const void* q, const void* k,
                                   const void* v, void* o, const void* kv_len,
-                                  int bh, int heads, int sq, int skv,
-                                  float sm_scale, void* stream) {
+                                  void* lse, int bh, int heads, int sq,
+                                  int skv, float sm_scale, void* stream) {
   Params p{};
   p.o = static_cast<__nv_bfloat16*>(o);
   p.kv_len = static_cast<const int*>(kv_len);
+  p.lse = static_cast<float*>(lse);
   p.heads = heads;
   p.sq = sq;
   p.skv = skv;

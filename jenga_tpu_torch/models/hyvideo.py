@@ -19,9 +19,18 @@ in every block), through a mask over the curve-ordered image tokens; the
 latent_concat conditioning needs only the 33 input channels
 (``hy_i2v_config``).
 
+Training: ``trunk(remat=True)`` (and ``forward(remat=True)``, so that a
+LoRA step can run the model under ``torch.func.functional_call``) runs
+each double and single block under ``torch.utils.checkpoint``, and the
+carved joint attention is differentiable (``ops/sparse_dispatch``).
+``HYCarve.sel_mask`` replays a recorded selection [B, H, nb, nb] (text
+rows included) in every block instead of the planner, with the JAX
+package's guards: on any non-carved call it raises, and a mask of another
+grid fails its shape check.
+
 Not ported (each raises ``NotImplementedError`` when asked for): the
-sequence-parallel mesh, ``sel_mask`` selection replay, and
-``scan``/``remat``.
+sequence-parallel mesh, and ``scan`` (a ``lax.scan`` over stacked block
+parameters, a compile device of XLA's; torch runs the stack eagerly).
 """
 
 from __future__ import annotations
@@ -116,7 +125,8 @@ class HYCarve:
     txt_block_num: int = 2
     q_rows: int = 1
     joint_sel: bool = False
-    sel_mask: object = None         # selection replay: not ported
+    sel_mask: object = None         # [B, H, nb, nb] bool: replayed, not
+                                    # planned (same q_rows / joint_sel)
 
 
 def hy_rope_tables(cfg: HYVideoConfig, grid, order=None):
@@ -269,9 +279,13 @@ def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen):
     s_pad = -(-s // 128) * 128
     carved = not (carve is None or carve.sa_drop_rate == 0.0
                   or s_pad // 128 <= carve.txt_block_num)
-    if carve is not None and carve.sel_mask is not None:
-        raise NotImplementedError("HYCarve.sel_mask selection replay is "
-                                  "not ported")
+    if carve is not None and carve.sel_mask is not None and not carved:
+        # a recorded selection must run on the sparse kernel, not be
+        # silently dropped for dense attention
+        raise NotImplementedError(
+            "HYCarve.sel_mask (selection replay) is set but this call "
+            "does not take the carved path (dense fallback) — the "
+            "recorded selection would be silently ignored")
     if not carved:
         return attention_bshd(q, k, v, kv_len=seqlen).reshape(b, s, n * hd)
 
@@ -283,14 +297,25 @@ def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen):
     top_k = int((1.0 - carve.sa_drop_rate) * (img_len // 128))
     qr = max(1, int(carve.q_rows))
     joint = qr > 1 and carve.joint_sel
-    mask = build_block_mask(
-        qt[:, :, :tsb * 128], kt, top_k=top_k, p_remain=carve.p_remain,
-        text_start_block=tsb, text_blocks=carve.txt_block_num,
-        block_neighbors=carve.block_neighbors,
-        sel_group=qr if joint else 1)
-    full = torch.ones((b, n, num_blocks - tsb, num_blocks), dtype=torch.bool,
-                      device=q.device)
-    mask = torch.cat([mask, full], dim=2)
+    if carve.sel_mask is not None:
+        # its layout depends on q_rows / joint_sel: replay it with the
+        # ones it was recorded under
+        mask = carve.sel_mask
+        expect = (b, n, num_blocks, num_blocks)
+        if tuple(mask.shape) != expect:
+            raise ValueError(
+                f"HYCarve.sel_mask shape {tuple(mask.shape)} != {expect} "
+                "expected (B, H, nqb, nkb incl. text rows) — was it "
+                "recorded on a different grid?")
+    else:
+        mask = build_block_mask(
+            qt[:, :, :tsb * 128], kt, top_k=top_k, p_remain=carve.p_remain,
+            text_start_block=tsb, text_blocks=carve.txt_block_num,
+            block_neighbors=carve.block_neighbors,
+            sel_group=qr if joint else 1)
+        full = torch.ones((b, n, num_blocks - tsb, num_blocks),
+                          dtype=torch.bool, device=q.device)
+        mask = torch.cat([mask, full], dim=2)
     out = sparse_attention_from_mask(
         qt, kt, vt, mask, seqlens=seqlen, text_start_block=tsb,
         text_amp=carve.text_amp, q_rows=qr, joint=joint)
@@ -496,18 +521,24 @@ class HYVideoDiT(nn.Module):
 
     def trunk(self, img, txt, aux, carve: HYCarve | None = None,
               remat: bool = False, scan: bool = False):
-        """Double + single block stack; img is curve-ordered in and out."""
-        if remat or scan:
-            raise NotImplementedError("remat/scan are JAX compile devices "
-                                      "and are not ported")
+        """Double + single block stack; img is curve-ordered in and out.
+        ``remat`` checkpoints each block: the backward recomputes its
+        forward (kernels included) instead of keeping its activations."""
+        if scan:
+            raise NotImplementedError("scan is an XLA compile device and is "
+                                      "not ported")
         vec, seqlen, tr = aux["vec"], aux["seqlens"], aux["tr"]
         rope_cos, rope_sin = aux["rope_cos"], aux["rope_sin"]
+
+        def run(blk, *args):
+            return L.remat_call(blk, *args) if remat else blk(*args)
+
         for blk in self.double_blocks:
-            img, txt = blk(img, txt, vec, carve, rope_cos, rope_sin, seqlen,
-                           tr)
+            img, txt = run(blk, img, txt, vec, carve, rope_cos, rope_sin,
+                           seqlen, tr)
         x = torch.cat([img, txt], dim=1)
         for blk in self.single_blocks:
-            x = blk(x, vec, carve, rope_cos, rope_sin, aux["txt_len"],
+            x = run(blk, x, vec, carve, rope_cos, rope_sin, aux["txt_len"],
                     seqlen, tr)
         return x[:, :img.shape[1]]
 
@@ -526,9 +557,10 @@ class HYVideoDiT(nn.Module):
                                cfg.out_channels)
 
     def forward(self, x, t, text_states, text_mask=None, text_states_2=None,
-                carve: HYCarve | None = None, guidance=None, mesh=None):
+                carve: HYCarve | None = None, guidance=None, mesh=None,
+                remat: bool = False):
         """Velocity prediction. x [B, C, F, H, W]; text_states [B, L, 4096];
-        text_states_2 [B, 768]."""
+        text_states_2 [B, 768]; ``remat`` as in ``trunk``."""
         if mesh is not None:
             raise NotImplementedError("sequence parallelism is not ported")
         if text_states_2 is None:
@@ -536,7 +568,7 @@ class HYVideoDiT(nn.Module):
                 (x.shape[0], self.cfg.text_states_dim_2), device=x.device)
         img, txt, aux = self.embed(x, t, text_states, text_mask,
                                    text_states_2, carve, guidance)
-        img = self.trunk(img, txt, aux, carve)
+        img = self.trunk(img, txt, aux, carve, remat=remat)
         return self.head(img, aux, carve)
 
 

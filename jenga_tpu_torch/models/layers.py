@@ -23,17 +23,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "linear", "rms_norm", "layer_norm", "gelu_tanh", "silu",
     "sinusoidal_embedding", "modulate", "patchify_3d", "unpatchify_3d",
     "rope_table_1d", "rope_table_3d", "apply_rope", "param", "Affine",
-    "Norm", "MLP", "init_affine_or_norm_",
+    "Norm", "MLP", "init_affine_or_norm_", "remat_call",
 ]
 
 
 def param(shape, dtype, device):
-    """An uninitialised, frozen parameter (the port serves, never trains)."""
+    """An uninitialised, frozen parameter (training adapts LoRA tensors
+    beside it, ``train/lora.py``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -226,3 +228,18 @@ def apply_rope(x, cos, sin):
     c, s = cos[:, None, :], sin[:, None, :]
     y = torch.stack([xe * c - xo * s, xo * c + xe * s], dim=-1)
     return y.flatten(-2).to(x.dtype)
+
+
+def _call_with(block: nn.Module, params: dict, *args):
+    return torch.func.functional_call(block, params, args)
+
+
+def remat_call(block: nn.Module, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward. The block's parameters
+    as they are now go in explicitly, so the recompute sees the same
+    weights even when this forward ran under ``torch.func.functional_call``
+    (the LoRA step's merged weights), which gives the module its own
+    parameters back when it returns, before the backward."""
+    return checkpoint(_call_with, block, dict(block.named_parameters()),
+                      *args, use_reentrant=False)

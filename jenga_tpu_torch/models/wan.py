@@ -27,8 +27,16 @@ ahead of the text context, and each block's cross-attention adds a second
 dense attention over those ``image_tokens`` keys (``k_img``, ``v_img``,
 ``norm_k_img``) to the one over the text keys.
 
-Not ported (each raises ``NotImplementedError``): the sequence-parallel
-``mesh``, ``sel_mask`` selection replay, and ``remat``.
+Training: ``trunk(remat=True)`` runs each block under
+``torch.utils.checkpoint`` (its activations are recomputed in the
+backward), and the carved self-attention is differentiable
+(``ops/sparse_dispatch``). ``WanCarve.sel_mask`` replays a recorded
+selection [B, H, nb, nb] in every layer instead of the planner, with the
+JAX package's guards: on the dense fallback it raises, and a mask of
+another grid fails its shape check.
+
+Not ported (raises ``NotImplementedError``): the sequence-parallel
+``mesh``.
 """
 
 from __future__ import annotations
@@ -110,7 +118,8 @@ class WanCarve:
     seqlen: int                     # real (unpadded) token count
     q_rows: int = 1
     joint_sel: bool = False
-    sel_mask: object = None         # selection replay: not ported
+    sel_mask: object = None         # [B, H, nb, nb] bool: replayed, not
+                                    # planned (same q_rows / joint_sel)
 
 
 def wan_rope_tables(cfg: WanConfig, grid, order=None, pad_to=None):
@@ -207,10 +216,15 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
     q = L.apply_rope(q, rope_cos, rope_sin)
     k = L.apply_rope(k, rope_cos, rope_sin)
 
-    if carve is not None and carve.sel_mask is not None:
-        raise NotImplementedError("WanCarve.sel_mask selection replay is "
-                                  "not ported")
     if carve is None or carve.sa_drop_rate <= 0.25:
+        if carve is not None and carve.sel_mask is not None:
+            # a recorded selection must run on the sparse kernel, not be
+            # silently dropped for dense attention
+            raise ValueError(
+                "WanCarve.sel_mask is set but sa_drop_rate "
+                f"{carve.sa_drop_rate} <= 0.25 takes the dense fallback "
+                "— the recorded selection would be silently ignored. "
+                "Raise sa_drop_rate or clear sel_mask.")
         # no kv_len: the pad tokens of the last block are attended
         out = attention_bshd(q, k, v)
     else:
@@ -220,12 +234,23 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
             top_k = int(num_blocks * (1.0 - carve.sa_drop_rate))
         qr = max(1, int(carve.q_rows))
         joint = qr > 1 and carve.joint_sel
-        mask = build_block_mask(
-            qt, kt, top_k=top_k, p_remain=carve.p_remain,
-            text_start_block=num_blocks, text_blocks=0,
-            block_neighbors=carve.block_neighbors,
-            first_frame_blocks=carve.first_frame_blocks,
-            sel_group=qr if joint else 1)
+        if carve.sel_mask is not None:
+            # its layout depends on q_rows / joint_sel: replay it with the
+            # ones it was recorded under
+            mask = carve.sel_mask
+            expect = (b, n, num_blocks, num_blocks)
+            if tuple(mask.shape) != expect:
+                raise ValueError(
+                    f"WanCarve.sel_mask shape {tuple(mask.shape)} != "
+                    f"{expect} expected for this stage (B, H, nqb, nkb) "
+                    "— was it recorded on a different grid?")
+        else:
+            mask = build_block_mask(
+                qt, kt, top_k=top_k, p_remain=carve.p_remain,
+                text_start_block=num_blocks, text_blocks=0,
+                block_neighbors=carve.block_neighbors,
+                first_frame_blocks=carve.first_frame_blocks,
+                sel_group=qr if joint else 1)
         out = sparse_attention_from_mask(
             qt, kt, vt, mask, seqlens=carve.seqlen,
             text_start_block=num_blocks, q_rows=qr,
@@ -366,12 +391,11 @@ class WanDiT(nn.Module):
     def trunk(self, h, aux, carve: WanCarve | None = None, top_k=None,
               mesh=None, remat: bool = False):
         """The block stack over curve-ordered hidden states (the TeaCache
-        residual ``h_out - h_in`` lives in this space)."""
+        residual ``h_out - h_in`` lives in this space). ``remat``
+        checkpoints each block: the backward recomputes its forward
+        (kernels included) instead of keeping its activations."""
         if mesh is not None:
             raise NotImplementedError("sequence parallelism is not ported")
-        if remat:
-            raise NotImplementedError("remat is a JAX training device and is "
-                                      "not ported")
         if carve is not None:
             rope_cos, rope_sin = carve.rope_cos, carve.rope_sin
         else:
@@ -379,8 +403,9 @@ class WanDiT(nn.Module):
                                   for a in wan_rope_tables(self.cfg,
                                                            aux["grid"]))
         for blk in self.blocks:
-            h = blk(h, aux["e6"], aux["ctx"], carve, rope_cos, rope_sin,
+            args = (h, aux["e6"], aux["ctx"], carve, rope_cos, rope_sin,
                     top_k, aux["image_tokens"])
+            h = L.remat_call(blk, *args) if remat else blk(*args)
         return h
 
     def head(self, h, aux, carve: WanCarve | None = None):

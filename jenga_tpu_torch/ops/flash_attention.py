@@ -1,17 +1,28 @@
-"""Dense attention with per-sample ``kv_len``: the CUDA kernel's wrapper,
-its plain torch version and its launch counter.
+"""Dense attention with per-sample ``kv_len``: the CUDA kernels' wrappers
+(forward D, backward dK|dV and dQ), their plain torch versions, the
+autograd Function that joins them, and the launch counters.
 
 Port of ``jenga_tpu/ops/flash_attention.py``'s semantics: keys at
 positions >= ``kv_len[b]`` are masked out, and a row whose every key is
-masked gives zeros, not NaN (``_masked_softmax``). The kernel
+masked gives zeros, not NaN (``_masked_softmax``). The forward kernel
 (``csrc/dense_attn.cu``) replaces the stock Pallas TPU flash kernel that
 ``dense_attention`` calls on the TPU; it serves Wan's cross-attention,
-Wan's dense warm-up steps and HunyuanVideo's dense arm. It is built at
-first use by ``cuda_build.build_library``.
+Wan's dense warm-up steps and HunyuanVideo's dense arm. Under autograd
+(``torch.is_grad_enabled()`` and an operand that requires grad) the call
+goes through ``_DenseAttention``: the forward kernel also stores each
+row's base-2 log-sum-exp, and the backward computes ``di = rowsum(dO *
+O)`` in torch (as JAX does in jnp outside its kernels), then launches the
+dK|dV kernel and the dQ kernel (``csrc/dense_attn_bwd.cu``), which
+replace the stock kernel's ``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``. Each source is built at first use by
+``cuda_build.build_library``.
 
-``dense_attention`` launches the kernel for CUDA tensors (bf16, head dim
-128, non-causal, or it raises) and uses the plain version only for CPU
-tensors; there is no fallback between the two.
+Every entry point launches its kernel for CUDA tensors (bf16, head dim
+128, non-causal, or it raises) and uses its plain version only for CPU
+tensors; there is no fallback between the two. Counters:
+``dense_attention.launches`` (every forward launch, with or without the
+statistics), ``dense_attention_backward.dkv_launches`` and
+``.dq_launches``.
 """
 
 from __future__ import annotations
@@ -23,23 +34,43 @@ import torch
 
 from .cuda_build import CSRC, build_library
 
-__all__ = ["dense_attention", "dense_attention_plain", "attention_bshd",
-           "build_kernel", "KERNEL_SOURCE"]
+__all__ = ["dense_attention", "dense_attention_plain",
+           "dense_attention_forward", "dense_attention_backward",
+           "dense_attention_backward_plain", "attention_bshd",
+           "build_kernel", "build_bwd_kernel", "KERNEL_SOURCE",
+           "BWD_KERNEL_SOURCE"]
 
 _HEAD_DIM = 128
-_SLAB = 1 << 28     # logits elements per query chunk of the plain version
+_BLOCK = 128        # query rows per forward thread block (the lse padding)
+_SLAB = 1 << 28     # logits elements per query chunk of the plain versions
+_LOG2E = 1.4426950408889634
 KERNEL_SOURCE = CSRC / "dense_attn.cu"
+BWD_KERNEL_SOURCE = CSRC / "dense_attn_bwd.cu"
 
 
 @functools.lru_cache(maxsize=1)
 def build_kernel() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the forward kernel library."""
     lib = build_library(KERNEL_SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dense_attn_forward.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    lib.dense_attn_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.dense_attn_forward.restype = ctypes.c_int
     lib.dense_attn_error_string.argtypes = [ctypes.c_int]
     lib.dense_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def build_bwd_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load the backward kernel library."""
+    lib = build_library(BWD_KERNEL_SOURCE)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dense_attn_bwd_dkv.argtypes = [p] * 9 + [i, i, i, i, f, p]
+    lib.dense_attn_bwd_dkv.restype = ctypes.c_int
+    lib.dense_attn_bwd_dq.argtypes = [p] * 8 + [i, i, i, i, f, p]
+    lib.dense_attn_bwd_dq.restype = ctypes.c_int
+    lib.dense_attn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.dense_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -54,22 +85,32 @@ def _kv_len_tensor(kv_len, b: int, device):
     return torch.as_tensor(kv_len, device=device).reshape(-1).expand(b)
 
 
-def dense_attention_plain(q, k, v, *, sm_scale: float | None = None,
-                          kv_len=None):
-    """The kernel's plain version over [B, H, S, D], in f32: the query
-    axis is chunked so one chunk's logits stay under 2^28 elements."""
+def _key_mask(kv_len, b: int, skv: int, device):
+    """[B, 1, 1, Skv] bool of the keys below ``kv_len``, or None."""
+    if kv_len is None:
+        return None
+    kl = _kv_len_tensor(kv_len, b, device)
+    return (torch.arange(skv, device=device)[None] < kl[:, None]
+            )[:, None, None]
+
+
+def _chunk(b: int, h: int, skv: int) -> int:
+    return max(1, _SLAB // max(1, b * h * skv))
+
+
+def _plain_forward(q, k, v, sm_scale: float, kv_len, with_lse: bool):
+    """(out, lse or None), in f32 with the query axis chunked so one
+    chunk's logits stay under 2^28 elements. ``lse`` [B, H, Sq] f32 is the
+    log-sum-exp of the base-2 logits ``q.k * sm_scale * log2(e)``, +inf
+    for a row with no valid key (the kernel's statistics)."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-    kmask = None
-    if kv_len is not None:
-        kl = _kv_len_tensor(kv_len, b, q.device)
-        kmask = (torch.arange(skv, device=q.device)[None] < kl[:, None]
-                 )[:, None, None]
+    kmask = _key_mask(kv_len, b, skv, q.device)
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
-    chunk = max(1, _SLAB // max(1, b * h * skv))
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    chunk = _chunk(b, h, skv)
     for c0 in range(0, sq, chunk):
         qc = q[:, :, c0:c0 + chunk].float()
         logits = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * sm_scale
@@ -78,63 +119,217 @@ def dense_attention_plain(q, k, v, *, sm_scale: float | None = None,
         p = _masked_softmax(logits)
         out[:, :, c0:c0 + chunk] = torch.einsum(
             "bhqk,bhkd->bhqd", p, vf).to(q.dtype)
-    return out
+        if with_lse:
+            ls = torch.logsumexp(logits, dim=-1) * _LOG2E
+            lse[:, :, c0:c0 + chunk] = ls.nan_to_num(nan=float("inf"),
+                                                    neginf=float("inf"))
+    return out, lse
 
 
-def _check_operands(q, k, v):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("dense_attention: q, k and v must lie on the same "
-                         "CUDA device")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def dense_attention_plain(q, k, v, *, sm_scale: float | None = None,
+                          kv_len=None):
+    """The forward kernel's plain version over [B, H, S, D], in f32."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return _plain_forward(q, k, v, sm_scale, kv_len, False)[0]
+
+
+def dense_attention_backward_plain(q, k, v, o, lse, do, *,
+                                   sm_scale: float | None = None,
+                                   kv_len=None):
+    """The backward kernels' plain version: (dq, dk, dv) in the operands'
+    dtypes from the forward's output ``o`` and statistics ``lse`` [B, H,
+    Sq] (base 2, as ``dense_attention_forward`` returns them), computed
+    in f32 with the query axis chunked: P = exp2(s * log2(e) - lse), di =
+    rowsum(dO * O), dS = P * (dP - di), dQ = sm_scale dS K, dK = sm_scale
+    dS^T Q, dV = P^T dO. Keys at or past ``kv_len`` get zero gradients,
+    and a row with no valid key (lse +inf) gives dQ = 0."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    kmask = _key_mask(kv_len, b, skv, q.device)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    chunk = _chunk(b, h, skv)
+    for c0 in range(0, sq, chunk):
+        sl = slice(c0, c0 + chunk)
+        qc, oc, doc = (x[:, :, sl].float() for x in (q, o, do))
+        s2 = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * (sm_scale * _LOG2E)
+        p = torch.exp2(s2 - lse[:, :, sl, None].float())
+        if kmask is not None:
+            p = p.masked_fill(~kmask, 0.0)
+        di = (doc * oc).sum(dim=-1, keepdim=True)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, doc)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", doc, vf) - di)
+        dq[:, :, sl] = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_operands(name, *xs):
+    q = xs[0]
+    if not all(x.is_cuda and x.device == q.device for x in xs):
+        raise ValueError(f"{name}: every operand must lie on the same CUDA "
+                         f"device")
+    for x in xs:
         if x.dtype != torch.bfloat16:
-            raise TypeError(f"dense_attention: {name} must be bfloat16, got "
+            raise TypeError(f"{name}: operands must be bfloat16, got "
                             f"{x.dtype}")
-    b, h, _, d = q.shape
+    b, h, sq, d = q.shape
+    k, v = xs[1], xs[2]
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    for x in xs[3:]:
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: {tuple(x.shape)} != q's "
+                             f"{tuple(q.shape)}")
     if d != _HEAD_DIM:
-        raise ValueError(f"dense_attention: head dim {d} is not supported "
-                         f"on CUDA (the kernel takes {_HEAD_DIM})")
+        raise ValueError(f"{name}: head dim {d} is not supported on CUDA "
+                         f"(the kernels take {_HEAD_DIM})")
+
+
+def _contiguous(name, *xs):
+    xs = tuple(x.contiguous() for x in xs)
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return xs
+
+
+def _kv_len_int32(kv_len, b: int, device):
+    if kv_len is None:
+        return None
+    return _kv_len_tensor(kv_len, b, device).to(torch.int32).contiguous()
+
+
+def _padded_rows(x, sq_pad: int, fill: float):
+    """[B, H, Sq] f32 -> contiguous [B*H, sq_pad] with ``fill`` past Sq."""
+    b, h, sq = x.shape
+    out = torch.full((b * h, sq_pad), fill, dtype=torch.float32,
+                     device=x.device)
+    out[:, :sq] = x.reshape(b * h, sq)
+    return out
+
+
+def dense_attention_forward(q, k, v, *, sm_scale: float | None = None,
+                            kv_len=None, with_lse: bool = False):
+    """(out, lse): dense non-causal attention over [B, H, S, D] in q's
+    dtype, and with ``with_lse`` the rows' base-2 log-sum-exp [B, H, Sq]
+    f32 (+inf for a row with no valid key), else None. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    b, h, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if not q.is_cuda:
+        return _plain_forward(q, k, v, sm_scale, kv_len, with_lse)
+    _check_operands("dense_attention", q, k, v)
+    q, k, v = _contiguous("dense_attention", q, k, v)
+    kl = _kv_len_int32(kv_len, b, q.device)
+    nqb = -(-sq // _BLOCK)
+    lse = (torch.full((b, h, nqb * _BLOCK), float("inf"),
+                      dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    out = torch.empty_like(q)
+    lib = build_kernel()
+    err = lib.dense_attn_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if kl is None else kl.data_ptr(),
+        None if lse is None else lse.data_ptr(), b * h, h, sq, k.shape[2],
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("dense_attention launch failed: "
+                           + lib.dense_attn_error_string(err).decode())
+    dense_attention.launches += 1
+    return out, None if lse is None else lse[..., :sq]
+
+
+def dense_attention_backward(q, k, v, o, lse, do, *,
+                             sm_scale: float | None = None, kv_len=None):
+    """(dq, dk, dv) of dense attention from the forward's output and
+    statistics (``dense_attention_forward(..., with_lse=True)``). CPU
+    tensors take the plain version; CUDA tensors compute ``di`` in torch
+    and launch the dK|dV kernel, then the dQ kernel, or raise."""
+    b, h, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if not q.is_cuda:
+        return dense_attention_backward_plain(q, k, v, o, lse, do,
+                                              sm_scale=sm_scale,
+                                              kv_len=kv_len)
+    _check_operands("dense_attention_backward", q, k, v, o, do)
+    q, k, v, do = _contiguous("dense_attention_backward", q, k, v, do)
+    skv = k.shape[2]
+    sq_pad = -(-sq // _BLOCK) * _BLOCK
+    lse_p = _padded_rows(lse, sq_pad, float("inf"))
+    di_p = _padded_rows((do.float() * o.float()).sum(dim=-1), sq_pad, 0.0)
+    kl = _kv_len_int32(kv_len, b, q.device)
+    kl_ptr = None if kl is None else kl.data_ptr()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = build_bwd_kernel()
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse_p.data_ptr(), di_p.data_ptr(), kl_ptr)
+    for fn, outs, counter in (
+            (lib.dense_attn_bwd_dkv, (dk.data_ptr(), dv.data_ptr()),
+             "dkv_launches"),
+            (lib.dense_attn_bwd_dq, (dq.data_ptr(),), "dq_launches")):
+        err = fn(*common, *outs, b * h, h, sq, skv, float(sm_scale), stream)
+        if err != 0:
+            raise RuntimeError(
+                "dense_attention_backward launch failed: "
+                + lib.dense_attn_bwd_error_string(err).decode())
+        setattr(dense_attention_backward, counter,
+                getattr(dense_attention_backward, counter) + 1)
+    return dq, dk, dv
+
+
+dense_attention_backward.dkv_launches = 0
+dense_attention_backward.dq_launches = 0
+
+
+class _DenseAttention(torch.autograd.Function):
+    """D under autograd: the forward keeps (q, k, v, out, lse), the
+    backward is ``dense_attention_backward``. ``kv_len`` gets no gradient
+    (the counterpart of the stock kernel's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, sm_scale):
+        out, lse = dense_attention_forward(q, k, v, sm_scale=sm_scale,
+                                           kv_len=kv_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
+        dq, dk, dv = dense_attention_backward(
+            q, k, v, out, lse, do, sm_scale=ctx.sm_scale, kv_len=kv_len)
+        return dq, dk, dv, None, None
 
 
 def dense_attention(q, k, v, *, sm_scale: float | None = None,
                     causal: bool = False, kv_len=None):
     """Dense non-causal attention over [B, H, S, D]; ``kv_len`` None or [B]
-    valid key counts. Returns [B, H, Sq, D] in q's dtype.
+    valid key counts. Returns [B, H, Sq, D] in q's dtype; differentiable
+    in q, k and v.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    or raise."""
     if causal:
         raise NotImplementedError("causal dense attention is not ported")
-    b, h, sq, d = q.shape
     if sm_scale is None:
-        sm_scale = d ** -0.5
-    if not q.is_cuda:
-        return dense_attention_plain(q, k, v, sm_scale=sm_scale,
-                                     kv_len=kv_len)
-    _check_operands(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    for x in (q, k, v):
-        if x.data_ptr() % 16:
-            raise ValueError("dense_attention: operands must be 16-byte "
-                             "aligned")
-    kl_ptr = None
-    if kv_len is not None:
-        kl = _kv_len_tensor(kv_len, b, q.device).to(torch.int32).contiguous()
-        kl_ptr = kl.data_ptr()
-    out = torch.empty_like(q)
-    lib = build_kernel()
-    err = lib.dense_attn_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kl_ptr,
-        b * h, h, sq, k.shape[2], float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("dense_attention launch failed: "
-                           + lib.dense_attn_error_string(err).decode())
-    dense_attention.launches += 1
-    return out
+        sm_scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if kv_len is not None:
+            kv_len = _kv_len_tensor(kv_len, q.shape[0], q.device)
+        return _DenseAttention.apply(q, k, v, kv_len, float(sm_scale))
+    return dense_attention_forward(q, k, v, sm_scale=sm_scale,
+                                   kv_len=kv_len)[0]
 
 
 dense_attention.launches = 0

@@ -16,7 +16,11 @@ skipping, the switch) with the I2V conditioning:
     (x = 0.999 n + 0.001 img).
 
 The first schedule takes ``scheduler_shift_list[0]`` (T2V takes
-``flow_shift``). The ``initial_latents`` / ``stage_noises`` hooks carry
+``flow_shift``). The text block count follows the text states given:
+``generate_i2v`` sets ``txt_block_num`` to ceil(text tokens / 128) (the
+llava states of an image prompt are ~396 tokens under token_replace and
+~540 under latent_concat, the zero states 256), where the JAX package
+keeps the options' count and its planner fails on the longer states. The ``initial_latents`` / ``stage_noises`` hooks carry
 the raw normal draws, before the stability blend and the pinning.
 
 ``generate_crop_size_list`` and ``get_closest_ratio`` (aspect-ratio
@@ -35,7 +39,7 @@ from ..diffusion.skip import HYI2V_STEP_CALC
 from .hyvideo_t2v import HYT2VOptions, HYVideoT2VPipeline
 
 __all__ = ["HYI2VOptions", "HYVideoI2VPipeline", "get_closest_ratio",
-           "generate_crop_size_list"]
+           "generate_crop_size_list", "text_block_count"]
 
 
 def generate_crop_size_list(base_size: int = 256, patch_size: int = 16,
@@ -65,6 +69,20 @@ def get_closest_ratio(height: float, width: float, ratios, buckets):
     return buckets[idx], ratios[idx]
 
 
+def text_block_count(text_states, negative=None) -> int:
+    """The joint sequence's text blocks for these text states:
+    ceil(tokens / 128), the count at which the text rows cover every text
+    token. The negative prompt's states (CFG) share the count, so they
+    must have as many tokens; else this raises ``ValueError``."""
+    n = int(text_states.shape[-2])
+    if negative is not None and int(negative[0].shape[-2]) != n:
+        raise ValueError(
+            f"the negative text states have {int(negative[0].shape[-2])} "
+            f"tokens and the positive {n}: one txt_block_num cannot serve "
+            f"both")
+    return -(-n // 128)
+
+
 @dataclasses.dataclass(frozen=True)
 class HYI2VOptions(HYT2VOptions):
     """Generation options (same fields and defaults as the JAX package)."""
@@ -74,7 +92,7 @@ class HYI2VOptions(HYT2VOptions):
     # the reference's i2v preset: initial shift 5.0, stage re-shifts 7 7
     scheduler_shift_list: tuple[float, ...] = (7.0, 7.0)
     non_skip_steps: tuple[int, ...] = HYI2V_STEP_CALC
-    txt_block_num: int = 4
+    txt_block_num: int = 4      # generate_i2v sets it from the text states
 
 
 class HYVideoI2VPipeline(HYVideoT2VPipeline):
@@ -103,7 +121,10 @@ class HYVideoI2VPipeline(HYVideoT2VPipeline):
         at that stage's latent size (numpy or tensors). The text inputs,
         ``negative``, ``on_step``, ``initial_latents`` and
         ``stage_noises`` are as in ``generate``; the two draws are taken
-        before the stability blend."""
+        before the stability blend. ``opts.txt_block_num`` is replaced by
+        ``text_block_count`` of the text states."""
+        opts = dataclasses.replace(
+            opts, txt_block_num=text_block_count(text_states, negative))
         validate_hy_options(opts)
         cond = opts.i2v_condition_type
         self._check_model(cond)

@@ -32,7 +32,7 @@ from jenga_tpu_torch.diffusion import skip as pt_skip
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = ["curves/gilbert.py", "curves/blocks.py", "diffusion/skip.py",
-          "configs/validate.py", "utils/video.py"]
+          "configs/validate.py", "utils/video.py", "train/dataset.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -159,9 +159,13 @@ def _loaded(prefixes):
 
 def test_port_imports_neither_jenga_tpu_nor_jax():
     """A fresh interpreter imports every module of the port (the tools
-    included) and finds no module of jenga_tpu or JAX loaded."""
+    and the training package included) and finds no module of jenga_tpu
+    or JAX loaded."""
     names = _modules_after_importing_the_port()[0]
     assert "jenga_tpu_torch.tools.kernel_split_probe" in names
+    assert {"jenga_tpu_torch.train", "jenga_tpu_torch.train.transport",
+            "jenga_tpu_torch.train.lora",
+            "jenga_tpu_torch.train.dataset"} <= set(names)
     assert _loaded(("jax", "jenga_tpu")) == []
     assert importlib.import_module("jenga_tpu_torch.curves.blocks") \
         is pt_blocks

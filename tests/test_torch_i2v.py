@@ -405,7 +405,14 @@ def test_hy_i2v_cli_options_match_jax_cli(argv):
     ones the JAX CLI hands to its pipeline for the same flags (its sampler
     stubbed): the base preset's flow_shift 7.0, txt_block_num 2 and T2V
     skip list win over the I2V defaults. The zero conditioning latents
-    have the JAX shapes."""
+    have the JAX shapes.
+
+    txt_block_num is compared too, but it diverges at generation (ROADMAP
+    Queue 3, closed): the port's ``generate_i2v`` replaces it by
+    ``text_block_count`` of the text states given, ceil(tokens / 128),
+    where JAX keeps the options' 2 and its planner fails on the ~396 and
+    ~540 llava tokens of an image prompt. For the CLI's zero text states
+    (256 tokens) the two counts agree."""
     got = tcli.hy_i2v_options(tcli.build_parser().parse_args(argv))
     seen = {}
 
@@ -428,9 +435,68 @@ def test_hy_i2v_cli_options_match_jax_cli(argv):
         jcli.run_hyvideo_i2v(args)
     assert dataclasses.asdict(got) == dataclasses.asdict(seen["opts"])
     assert (got.flow_shift, got.txt_block_num) == (7.0, 2)
+    assert thy_i2v.text_block_count(np.zeros((256, 8), np.float32)) == 2
     shapes = thy_i2v.HYVideoI2VPipeline._stage_shapes(Pipe(), got)
     assert [(16, 1, lat[1], lat[2]) for lat, _ in shapes] == \
         [a.shape for a in seen["latents"]]
+
+
+@pytest.mark.parametrize("cond,n_text,blocks", [
+    ("token_replace", 396, 4), ("latent_concat", 540, 5),
+    ("token_replace", 256, 2), ("latent_concat", 256, 2)])
+def test_hy_i2v_text_blocks_follow_the_text_states(hy, monkeypatch, cond,
+                                                   n_text, blocks):
+    """``generate_i2v`` takes ceil(text tokens / 128) text blocks whatever
+    the options carry (the CLI's are the base preset's 2): the llava
+    states of an image prompt (144 image + ~252 text tokens under
+    token_replace, 288 + ~252 under latent_concat) and the 256 zero
+    states. Every carve of the run has the derived count, and a carved
+    2-step run at the parity size finishes with finite latents (with the
+    options' 2 the 396- and 540-token states leave the planner more video
+    rows than video blocks, and it fails)."""
+    _, _, model = hy[cond]
+    opts = get_hy_i2v_options("base", size=(256, 128), video_length=33,
+                              i2v_condition_type=cond, num_inference_steps=2)
+    assert opts.txt_block_num == 2
+    pipe = thy_i2v.HYVideoI2VPipeline(model)
+    shapes = [lat for lat, _ in pipe._stage_shapes(opts)]
+    rng = np.random.default_rng(3)
+    img_lats = [rng.standard_normal((16, 1, *sh[1:])).astype(np.float32)
+                for sh in shapes]
+    txt = rng.standard_normal((n_text, SMALL["text_states_dim"])).astype(
+        np.float32)
+    mask = np.ones((n_text,), np.int32)
+    txt2 = rng.standard_normal((SMALL["text_states_dim_2"],)).astype(
+        np.float32)
+    seen = []
+    real = thy.make_hy_carve
+
+    def spy(*a, **kw):
+        seen.append(kw["txt_block_num"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(thy, "make_hy_carve", spy)
+    got = pipe.generate_i2v(img_lats, txt, mask, txt2, opts, decode=False)
+    assert seen and set(seen) == {blocks}
+    assert torch.isfinite(got).all() and got.shape == (16, *shapes[-1])
+
+
+def test_hy_i2v_text_blocks_refuse_unequal_negative(hy):
+    """CFG stacks the negative prompt's states with the positive ones, so
+    one count must serve both: unequal lengths raise a ValueError naming
+    both token counts before the first step."""
+    _, _, model = hy["token_replace"]
+    opts = get_hy_i2v_options("base", size=(256, 128), video_length=33,
+                              num_inference_steps=2, guidance_scale=6.0)
+    pipe = thy_i2v.HYVideoI2VPipeline(model)
+    n = SMALL["text_states_dim"]
+    neg = (np.zeros((256, n), np.float32), np.ones((256,), np.int32),
+           np.zeros((SMALL["text_states_dim_2"],), np.float32))
+    with pytest.raises(ValueError, match="256 tokens and the positive 396"):
+        pipe.generate_i2v([None, None], np.zeros((396, n), np.float32),
+                          np.ones((396,), np.int32), neg[2], opts,
+                          negative=neg, decode=False)
+    assert thy_i2v.text_block_count(np.zeros((540, n))) == 5
 
 
 @pytest.mark.parametrize("argv", WAN_I2V_ARGV)

@@ -1,5 +1,6 @@
 """The CUDA kernels (block-sparse attention in its all-member and
-membership modes, dense attention, and the probe kernels P1-P4) against
+membership modes, dense attention and its backward, and the probe kernels
+P1-P4) against
 their plain torch versions, the HunyuanVideo token_replace pinning, the
 fp8 ``linear``, the CLI's ``--tiny`` runs (T2V and I2V, dpm++), the
 VAEs, the image encode, the resize, the text and image encoders and the
@@ -27,8 +28,10 @@ from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
 from jenga_tpu_torch.ops.cross_attention_resident import (
     cross_attention_resident, cross_attention_resident_plain)
-from jenga_tpu_torch.ops.flash_attention import (dense_attention,
-                                                 dense_attention_plain)
+from jenga_tpu_torch.ops.flash_attention import (
+    _plain_forward, dense_attention, dense_attention_backward,
+    dense_attention_backward_plain, dense_attention_forward,
+    dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
 
 NB, TSB = 11, 9     # 9 video + 2 text blocks, as in the slice tests
@@ -245,6 +248,87 @@ def test_dense_kernel_wan14b_cross_attention_on_card(cuda_device, skv):
     ref = dense_attention_plain(q.float(), k.float(), v.float())
     assert torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,kv_len", [
+    (1, 1024, 1024, None),          # whole tiles
+    (2, 1000, 300, [0, 137]),       # Sq % 128 != 0, ragged keys, kv_len 0
+    (2, 700, 512, None),            # Wan cross-attention's 512 keys
+    (1, 1408, 1408, [1368]),        # HY joint length with padded text
+    (2, 1000, 257, None),           # 257 image keys: a last tile of 1 key
+    (3, 130, 257, [257, 1, 128])])  # 3 key tiles, 1 key, 1 whole tile
+def test_dense_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv,
+                                                    kv_len):
+    """The forward's statistics and the dK|dV and dQ kernels vs their plain
+    versions on the same bf16 operands (the card's o and lse fed to both):
+    lse within 1e-3 (log2 units; ex2.approx), each gradient within 2e-2
+    relative L2 (P and dS are rounded to bf16 before their products, ~2^-9
+    each, and the gradients are stored in bf16). Keys at or past kv_len get
+    exactly zero dK and dV, and a kv_len 0 sample zero dQ."""
+    q, k, v = _dense_inputs(17, cuda_device, b, sq, skv)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device).bfloat16()
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                  device=cuda_device)
+    o, lse = dense_attention_forward(q, k, v, kv_len=kl, with_lse=True)
+    _, lse_ref = _plain_forward(q, k, v, 128 ** -0.5, kl, True)
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() <= 1e-3
+    before = (dense_attention_backward.dkv_launches,
+              dense_attention_backward.dq_launches)
+    got = dense_attention_backward(q, k, v, o, lse, do, kv_len=kl)
+    torch.cuda.synchronize()
+    assert (dense_attention_backward.dkv_launches,
+            dense_attention_backward.dq_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = dense_attention_backward_plain(q.float(), k.float(), v.float(),
+                                          o.float(), lse, do.float(),
+                                          kv_len=kl)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all(), name
+        assert _rel_l2(x, y) <= 2e-2, (name, _rel_l2(x, y))
+    for i, n in enumerate(kv_len or []):
+        assert not got[1][i, :, n:].any() and not got[2][i, :, n:].any()
+        if n == 0:
+            assert not got[0][i].any()
+
+
+@pytest.mark.gpu
+def test_dense_attention_autograd_on_card(cuda_device):
+    """``dense_attention`` under autograd launches the forward with its
+    statistics once and each backward kernel once, and its gradients
+    match the plain backward (2e-2 relative L2)."""
+    q, k, v = (x.requires_grad_() for x in _dense_inputs(
+        18, cuda_device, 2, 333, 200))
+    kl = torch.tensor([200, 77], dtype=torch.int32, device=cuda_device)
+    before = (dense_attention.launches, dense_attention_backward.dkv_launches,
+              dense_attention_backward.dq_launches)
+    out = dense_attention(q, k, v, kv_len=kl)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (dense_attention.launches, dense_attention_backward.dkv_launches,
+            dense_attention_backward.dq_launches) == tuple(
+                c + 1 for c in before)
+    o, lse = _plain_forward(q.detach(), k.detach(), v.detach(), 128 ** -0.5,
+                            kl, True)
+    want = dense_attention_backward_plain(
+        *(x.detach().float() for x in (q, k, v)), out.detach().float(), lse,
+        g.float(), kv_len=kl)
+    for x, y in zip((q.grad, k.grad, v.grad), want):
+        assert _rel_l2(x, y) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_dense_backward_rejects_what_it_does_not_cover(cuda_device):
+    q, k, v = _dense_inputs(19, cuda_device, 1, 256, 256)
+    o, lse = dense_attention_forward(q, k, v, with_lse=True)
+    with pytest.raises(TypeError):
+        dense_attention_backward(q, k, v, o, lse, o.float())
+    with pytest.raises(ValueError):
+        dense_attention_backward(q, k, v, o, lse, o[:, :, :128])
 
 
 @pytest.mark.gpu
