@@ -218,6 +218,27 @@ result line):
      bias are inside the recompute backward; K1 12) and one dense-fallback
      step (D 12, dK|dV 6, dQ 6 over the padded text's kv_len). A
      ``train:`` line gathers phases 16-16b.
+  17. sequence parallelism (``jenga_tpu_torch/parallel``). In a 1-rank
+     NCCL group (TCP store on 127.0.0.1, a free port; the card machine has
+     one H100 and NCCL refuses two ranks on one device): (17a) phase 3's
+     model and text (the same seeds), one carved Base step at
+     1280x720x33f (joint q8) through forward(mesh=make_sp_mesh()) against
+     the same forward without a mesh: the 60 planner masks equal, the
+     output within 1e-3 relative L2, K1 launched 60 times and nothing
+     else; (17b) the same for phase 4's Wan2.1-T2V-1.3B, one carved CFG
+     step at 832x480x81f (30 masks, K1 and D 30 times each); (17c)
+     ring_attention at HunyuanVideo's joint shape (2 x 24 heads, 32,400
+     image tokens, 256 text keys, 216 valid in sample 0, none in sample
+     1) against one D launch over the concatenated keys and, for sample
+     1, over the image keys alone, within 1e-2 max abs and 2e-2 relative
+     L2, D launched twice; (17d) each step timed plain, SP, SP, plain.
+     Then (17e) two rank processes of this script on the one card in a
+     gloo group (its all_to_all_single and all_gather_into_tensor take
+     CUDA tensors; its point-to-point sends do not, so no ring): 17b's
+     step through WanSampler(sp_degree=2) (FSDP weights, Ulysses), each
+     rank's gathered output the same and within 2e-2 relative L2 of
+     17b's, K1 and D 30 times on each rank. An ``sp:`` line gathers
+     phase 17, with the card's name and power limit.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -3232,6 +3253,317 @@ def phase_train_hy_i2v():
     return {**runs, "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------ 17: sequence parallel
+
+SP_REL_TOL = 1e-3   # 17a/17b: the SP forward at world 1 against the plain
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _recorded_masks(masks):
+    """Record every planner mask handed to the carved dispatch, from the
+    single-device models and from the Ulysses path."""
+    from jenga_tpu_torch.models import hyvideo, wan
+    from jenga_tpu_torch.ops.sparse_dispatch import \
+        sparse_attention_from_mask as real
+    from jenga_tpu_torch.parallel import ulysses
+
+    def recording(qt, kt, vt, mask, **kw):
+        masks.append(mask.clone())
+        return real(qt, kt, vt, mask, **kw)
+
+    with mock.patch.object(hyvideo, "sparse_attention_from_mask",
+                           recording), \
+            mock.patch.object(wan, "sparse_attention_from_mask", recording), \
+            mock.patch.object(ulysses, "sparse_attention_from_mask",
+                              recording):
+        yield
+
+
+def _sp_step(label, fwd, mesh, layers, expect):
+    """One step through ``fwd(mesh)`` and the same without a mesh: the
+    planner masks equal, the outputs within SP_REL_TOL, the SP run's
+    launches as ``expect``; then both timed in turns (plain, SP, SP,
+    plain)."""
+    import torch
+    plain_masks, sp_masks = [], []
+    with torch.inference_mode():
+        with _recorded_masks(plain_masks):
+            want = fwd(None)
+            torch.cuda.synchronize()
+        with _recorded_masks(sp_masks), _Launches() as run:
+            got = fwd(mesh)
+            torch.cuda.synchronize()
+    rel = _rel(got, want)
+    want = want.cpu()
+    same = len(plain_masks) == len(sp_masks) == layers and all(
+        torch.equal(a, b) for a, b in zip(plain_masks, sp_masks))
+    print(f"   {label}: rel L2 {rel:.3e} (bound {SP_REL_TOL}); {layers} "
+          f"planner masks equal: {same}; launches {run.counts}")
+    if not torch.isfinite(got).all() or rel > SP_REL_TOL:
+        fail(f"{label}: the SP output is not finite or {rel} > "
+             f"{SP_REL_TOL} from the plain forward")
+    if not same:
+        fail(f"{label}: the SP path's planner masks differ from the plain "
+             f"forward's ({len(sp_masks)} vs {len(plain_masks)} calls)")
+    if run.counts != expect:
+        fail(f"{label}: launches {run.counts} != {expect}")
+    del plain_masks, sp_masks, got
+    secs = {"plain": [], "sp": []}
+    with torch.inference_mode():
+        for kind in ("plain", "sp", "sp", "plain"):
+            t1 = time.perf_counter()
+            fwd(mesh if kind == "sp" else None)
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t1)
+    print(f"   {label} step seconds, plain then SP (world 1, in turns): "
+          f"{secs}")
+    return {"rel_err": rel, "masks_equal": same, "launches": run.counts,
+            "plain_s": secs["plain"], "sp_s": secs["sp"], "out": want}
+
+
+def _sp_hy(mesh):
+    """17a: phase 3's model and text (the same seeds), one carved Base
+    step at 1280x720x33f through forward(mesh=)."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_preset
+    from jenga_tpu_torch.diffusion.flow_match import flow_match_schedule
+    from jenga_tpu_torch.models.hyvideo import make_hy_carve
+    sampler, gen = _hy_sampler()
+    model, cfg = sampler.model, sampler.cfg
+    txt, mask, txt2 = _text(gen, cfg, n_pad=40)
+    opts = get_hy_preset("base", size=(1280, 720), video_length=33,
+                         num_inference_steps=8)
+    carve = make_hy_carve(cfg, (9, 45, 80), opts.sa_drop_rates[0],
+                          opts.p_remain, curve=opts.curve,
+                          txt_block_num=opts.txt_block_num,
+                          q_rows=opts.q_group, joint_sel=opts.joint_sel,
+                          device="cuda")
+    x = torch.randn((1, 16, 9, 90, 160), generator=gen, device="cuda")
+    t = torch.full((1,), flow_match_schedule(8, shift=opts.flow_shift)
+                   .timestep(0), device="cuda")
+    g = torch.full((1,), opts.embedded_guidance_scale * 1000.0,
+                   device="cuda")
+    layers = cfg.double_blocks + cfg.single_blocks
+
+    def fwd(mesh):
+        return model(x, t, txt[None], mask[None], txt2[None], carve=carve,
+                     guidance=g, mesh=mesh)
+    return _sp_step("17a HunyuanVideo T2V Base, joint q8", fwd, mesh,
+                    layers, _counts(block_sparse_attn=layers))
+
+
+def _wan_sp_setup(sp_degree: int = 1):
+    """Phase 4's model and prompts (the same seeds) and the inputs of one
+    carved CFG step (batch 2) of the 1.3b-base preset at 832x480x81f:
+    (sampler, model arguments). With ``sp_degree`` the sampler is built
+    from the same weights on its mesh, with FSDP."""
+    import torch
+    from jenga_tpu_torch.configs.presets import get_wan_preset
+    from jenga_tpu_torch.models.wan import WAN_T2V_1_3B, WanDiT, init_wan_
+    from jenga_tpu_torch.runtime import WanSampler
+    cfg = WAN_T2V_1_3B
+    # WanSampler(seed=0)'s init, then phase 4's perturbation
+    model = init_wan_(WanDiT(cfg, device="cuda"),
+                      torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _perturb_wan(model, gen)
+    sampler = WanSampler(cfg, model.state_dict(), device="cuda",
+                         sp_degree=sp_degree)
+    del model
+    ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
+    opts = get_wan_preset("1.3b-base", size=(832, 480), frame_num=81,
+                          sampling_steps=6)
+    pipe = sampler.pipeline
+    carve = pipe._carve((16, 21, 60, 104), opts)
+    ctx2 = pipe._context2(ctx, null)
+    x = torch.randn((1, 16, 21, 60, 104), generator=gen, device="cuda")
+    x2 = torch.cat([x, x])
+    t2 = torch.full((2,), pipe._schedules(opts)[0].timestep(3),
+                    device="cuda")
+    return sampler, (x2, t2, ctx2, carve)
+
+
+def _sp_wan(mesh):
+    """17b: one carved Wan2.1-T2V-1.3B CFG step (``_wan_sp_setup``)."""
+    sampler, args = _wan_sp_setup()
+    layers = sampler.cfg.num_layers
+
+    def fwd(mesh):
+        return sampler.model(*args, mesh=mesh)
+    return _sp_step("17b Wan2.1-T2V-1.3B Base carved CFG step, joint q8",
+                    fwd, mesh, layers,
+                    _counts(block_sparse_attn=layers, dense_attn=layers))
+
+
+SP_GLOO_RANKS = 2
+SP_GLOO_REL_TOL = 2e-2  # 17e: each rank's bf16 GEMMs see half the tokens
+
+
+def sp_gloo_rank(rank: int, store: str, out_dir: str):
+    """17e, one rank (``chip_smoke.py --sp-gloo-rank``): a gloo group of
+    SP_GLOO_RANKS processes on the one card (NCCL refuses two ranks on one
+    device; gloo's all_to_all_single and all_gather_into_tensor take CUDA
+    tensors), 17b's step at sp=2 through WanSampler(sp_degree=2): its
+    mesh, FSDP weights and Ulysses. Writes the output and the launches."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=SP_GLOO_RANKS, rank=rank)
+    try:
+        sampler, args = _wan_sp_setup(SP_GLOO_RANKS)
+        with torch.inference_mode(), _Launches() as run:
+            t1 = time.perf_counter()
+            out = sampler.model(*args, mesh=sampler.mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        torch.save({"out": out.cpu(), "launches": run.counts,
+                    "seconds": secs}, os.path.join(out_dir, f"{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    print("SP_RANK_OK", flush=True)
+
+
+def _sp_gloo(want):
+    """17e: two rank processes of ``sp_gloo_rank`` on the card; each
+    rank's gathered output against 17b's single-device one."""
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-gloo-rank",
+             str(r), os.path.join(d, "store"), d], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(SP_GLOO_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            fail("17e: a rank process did not finish within 300 s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or "SP_RANK_OK" not in log:
+                fail(f"17e rank {r} failed (rc {p.returncode}): "
+                     f"{log[-3000:]}")
+        ranks = [torch.load(os.path.join(d, f"{r}.pt"))
+                 for r in range(SP_GLOO_RANKS)]
+    layers = 30
+    rec = {"rel_err": [_rel(r["out"], want) for r in ranks],
+           "seconds": [r["seconds"] for r in ranks],
+           "launches": {k: sum(r["launches"][k] for r in ranks)
+                        for k in ranks[0]["launches"]},
+           "ranks_equal": all(torch.equal(r["out"], ranks[0]["out"])
+                              for r in ranks)}
+    print(f"   17e Wan2.1-T2V-1.3B at sp=2 on gloo (two ranks, one card): "
+          f"{rec}")
+    if not rec["ranks_equal"]:
+        fail("17e: the ranks' gathered outputs differ")
+    if max(rec["rel_err"]) > SP_GLOO_REL_TOL:
+        fail(f"17e: rel L2 {rec['rel_err']} > {SP_GLOO_REL_TOL}")
+    for r in ranks:
+        if r["launches"] != _counts(block_sparse_attn=layers,
+                                    dense_attn=layers):
+            fail(f"17e: rank launches {r['launches']}: expected K1 and D "
+                 f"{layers} times each")
+    return rec
+
+
+def _sp_ring(mesh):
+    """17c: ring_attention at world 1 on HunyuanVideo's joint shape (24
+    heads, 32,400 image tokens, 256 text keys, 216 of them valid in
+    sample 0 and none in sample 1) against one D launch over the
+    concatenated keys; sample 1 against D over the image keys alone."""
+    import torch
+    from jenga_tpu_torch.ops.flash_attention import dense_attention_forward
+    from jenga_tpu_torch.parallel.ring import ring_attention
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    q, k, v = (randn(2, 32400, 24, 128) for _ in range(3))
+    jk, jv = randn(2, 256, 24, 128), randn(2, 256, 24, 128)
+    jlen = torch.tensor([216, 0], dtype=torch.int32, device="cuda")
+
+    def ring():
+        return ring_attention(q, k, v, mesh, joint_k=jk, joint_v=jv,
+                              joint_kv_len=jlen)
+    with torch.inference_mode():
+        with _Launches() as run:
+            out = ring()
+            torch.cuda.synchronize()
+        if run.counts != _counts(dense_attn=2):
+            fail(f"17c ring launches {run.counts}: expected D twice (the "
+                 f"image chunk, the joint chunk)")
+
+        def bhsd(*xs):
+            return (x.transpose(1, 2) for x in xs)
+        kf, vf = torch.cat([k, jk], dim=1), torch.cat([v, jv], dim=1)
+        ref = dense_attention_forward(*bhsd(q, kf, vf),
+                                      kv_len=32400 + jlen)[0]
+        img = dense_attention_forward(*bhsd(q[1:], k[1:], v[1:]))[0]
+        rec = _errors("17c ring vs D over the joint keys", out.transpose(1,
+                                                                     2),
+                      ref.float())
+        rec_img = _errors("17c zero joint keys vs D over the image keys",
+                          out[1:].transpose(1, 2), img.float())
+        rec["ms"] = time_ms(ring, 5)
+        rec["d_ms"] = time_ms(lambda: dense_attention_forward(
+            *bhsd(q, kf, vf), kv_len=32400 + jlen), 5)
+    rec["zero_joint"] = rec_img
+    print(f"   17c ring x world 1: {rec}")
+    for r in (rec, rec_img):
+        if r["max_abs_err"] > KERNEL_TOL or r["rel_err"] > KERNEL_REL_TOL:
+            fail(f"17c: {r} outside {KERNEL_TOL} max abs / "
+                 f"{KERNEL_REL_TOL} relative")
+    rec["launches"] = run.counts
+    return rec
+
+
+def phase_sp():
+    """Phase 17: sequence parallelism on the card, in a 1-rank NCCL
+    group (the card machine has one H100; NCCL refuses two ranks on one
+    device)."""
+    import torch.distributed as dist
+    from jenga_tpu_torch.parallel.mesh import init_distributed, make_sp_mesh
+    t0 = phase("17. sequence parallelism: a 1-rank NCCL group (Ulysses on "
+               "HunyuanVideo and Wan, ring), then Wan at sp=2 on gloo")
+    init_distributed("cuda", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                     world_size=1, rank=0)
+    try:
+        mesh = make_sp_mesh(device="cuda")
+        out = {}
+        for key, fn in (("17a_hy", _sp_hy), ("17b_wan", _sp_wan),
+                        ("17c_ring", _sp_ring)):
+            out[key] = fn(mesh)
+            _free()     # each model goes before the next is built
+    finally:
+        dist.destroy_process_group()
+    out["17e_wan_gloo_sp2"] = _sp_gloo(out["17b_wan"]["out"])
+    for key in ("17a_hy", "17b_wan"):
+        del out[key]["out"]
+    out["17d"] = {k: {"plain_s": out[k]["plain_s"], "sp_s": out[k]["sp_s"]}
+                  for k in ("17a_hy", "17b_wan")}
+    out["gpu"] = gpu_line()
+    print(f"   17d SP step vs plain step at world 1 (seconds): "
+          f"{out['17d']}; gpu: {out['gpu']}")
+    done(t0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3262,6 +3594,7 @@ def main():
     ckpt = phase_checkpoints()
     train = phase_train_wan()
     train_hy = phase_train_hy_i2v()
+    sp = phase_sp()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -3284,7 +3617,11 @@ def main():
             "train_wan_1.3b_dense": train["dense"]["launches"],
             "train_wan_1.3b_carved": train["carved"]["launches"],
             "train_hyvideo_i2v_carved": train_hy["carved"]["launches"],
-            "train_hyvideo_i2v_dense": train_hy["dense"]["launches"]}
+            "train_hyvideo_i2v_dense": train_hy["dense"]["launches"],
+            "sp_hyvideo_t2v_world1": sp["17a_hy"]["launches"],
+            "sp_wan_t2v_1.3b_world1": sp["17b_wan"]["launches"],
+            "sp_ring_hy_joint_world1": sp["17c_ring"]["launches"],
+            "sp_wan_t2v_1.3b_gloo_sp2": sp["17e_wan_gloo_sp2"]["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -3387,6 +3724,7 @@ def main():
         "15_checkpoints": ckpt}))
     print("train: " + json.dumps({"16_wan_1.3b": train,
                                   "16b_hyvideo_i2v": train_hy}))
+    print("sp: " + json.dumps(sp))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))
@@ -3396,4 +3734,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sp-gloo-rank"]:
+        sys.path.insert(0, ROOT)
+        sp_gloo_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

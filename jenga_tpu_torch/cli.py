@@ -42,6 +42,16 @@ was loaded and ``--latents-only`` is absent, anything else as .npy.
 CPU, ``--lora-path`` merges a kohya LoRA into the HunyuanVideo-I2V DiT,
 ``--t5-cpu`` keeps Wan's T5 on the CPU.
 
+Sequence parallelism: under ``torchrun --nproc-per-node N``, one process
+per card, ``--ulysses-degree U --ring-degree R`` with ``U x R = N`` splits
+every step's tokens over the N cards (Ulysses; a ring axis runs dense ring
+x Ulysses attention and warns that carving is off) and their DiT weights
+(FSDP). Every rank runs the loop; only rank 0 writes the output and
+prints the JSON line:
+
+  torchrun --nproc-per-node 4 -m jenga_tpu_torch.cli wan-t2v \
+      --latents-only --ulysses-degree 4
+
 ``hyvideo-i2v --i2v-image-path`` loads the image and, without
 ``--video-size``, buckets the video size by its aspect at
 ``--i2v-resolution``; it encodes one conditioning latent per stage when
@@ -105,6 +115,15 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--neg-prompt", type=str, default=None)
     p.add_argument("--ckpt-dir", type=str, default=None,
                    help="checkpoint directory in the reference's layout")
+    p.add_argument("--ulysses-degree", type=int, default=1,
+                   help="sequence-parallel degree: tokens and DiT weights "
+                        "split over this many ranks (Ulysses attention + "
+                        "FSDP); run under torchrun")
+    p.add_argument("--ring-degree", type=int, default=1,
+                   help="outer ring-attention axis: ring_degree x "
+                        "ulysses_degree ranks (dense attention only — "
+                        "carving needs --ring-degree 1; the reference's "
+                        "world == ring x ulysses contract)")
 
 
 def _offload(p: argparse.ArgumentParser):
@@ -213,10 +232,23 @@ def _save_output(path, out, latents_only=False):
     return path
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _save(args, out, t0):
+    """The JSON line and the output, on rank 0 only: every rank holds the
+    same result."""
     out = out.cpu()     # waits for the device
+    if _rank() != 0:
+        return
     print(json.dumps({"gen_time_s": round(time.time() - t0, 2)}))
     _save_output(args.save_path, out.numpy(), args.latents_only)
+
+
+def _sp(args) -> dict:
+    return dict(sp_degree=args.ulysses_degree, ring_degree=args.ring_degree)
 
 
 def _hy_overrides(args) -> dict:
@@ -266,13 +298,13 @@ def _hy_sampler(args, i2v: bool = False, cond: str = "token_replace"):
         # --use-fp8 acts on the published model only, as in the JAX CLI
         return HunyuanVideoSampler(
             hy_i2v_config(cond, cfg) if i2v else cfg, device=args.device,
-            seed=args.seed, i2v=i2v, use_fp8=False)
+            seed=args.seed, i2v=i2v, use_fp8=False, **_sp(args))
     return HunyuanVideoSampler.from_pretrained(
         args.ckpt_dir, i2v=i2v, seed=args.seed,
         use_fp8=getattr(args, "use_fp8", False),
         lora_path=getattr(args, "lora_path", None),
         use_cpu_offload=args.use_cpu_offload, device=args.device,
-        i2v_condition_type=cond)
+        i2v_condition_type=cond, **_sp(args))
 
 
 def run_hyvideo_t2v(args):
@@ -413,10 +445,11 @@ def _wan_sampler(args, task: str):
     if args.tiny:
         return WanSampler(_tiny_wan_config(args.device,
                                            i2v=task.startswith("i2v")),
-                          device=args.device, seed=args.seed)
+                          device=args.device, seed=args.seed, **_sp(args))
     return WanSampler.from_pretrained(
         task, args.ckpt_dir, seed=args.seed,
-        t5_on_host=getattr(args, "t5_cpu", False), device=args.device)
+        t5_on_host=getattr(args, "t5_cpu", False), device=args.device,
+        **_sp(args))
 
 
 def run_wan_t2v(args):

@@ -28,9 +28,19 @@ rows included) in every block instead of the planner, with the JAX
 package's guards: on any non-carved call it raises, and a mask of another
 grid fails its shape check.
 
-Not ported (each raises ``NotImplementedError`` when asked for): the
-sequence-parallel mesh, and ``scan`` (a ``lax.scan`` over stacked block
-parameters, a compile device of XLA's; torch runs the stack eagerly).
+Sequence parallelism (``mesh=``, ``parallel/``): ``embed`` keeps this
+rank's slice of the curve-ordered image tokens (with their RoPE rows and
+token-replace mask; sliced over ``ring`` x ``sp``, copied over any other
+axis such as ``dp``), the text stream stays whole on every rank, every
+block's joint attention runs under Ulysses (carved, or dense D), or, when
+the heads do not divide the ``sp`` axis or the mesh has a ``ring`` axis,
+as dense ring (x Ulysses) attention after the carving-disabled warning,
+and ``head`` gathers the slices first. ``sel_mask`` on a mesh raises, as
+in the JAX package.
+
+Not ported (raises ``NotImplementedError``): ``scan`` (a ``lax.scan``
+over stacked block parameters, a compile device of XLA's; torch runs the
+stack eagerly).
 """
 
 from __future__ import annotations
@@ -45,6 +55,10 @@ from torch import nn
 from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
+from ..parallel.mesh import (gather_tokens, token_mesh, token_range,
+                             ulysses_fits, warn_carving_disabled)
+from ..parallel.ring import ring_attention, ring_ulysses_attention
+from ..parallel.ulysses import ulysses_joint_attention
 from ..sparse.planner import build_block_mask
 from . import layers as L
 
@@ -270,15 +284,69 @@ def _tr_chunks(mod: L.Affine, tr_vec, n: int):
     return mod(L.silu(tr_vec)).float()[:, None].chunk(n, dim=-1)
 
 
-def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen):
+def _carves(carve: HYCarve | None, s: int) -> bool:
+    """Whether a joint sequence of ``s`` tokens takes the carved path: a
+    drop rate, and a video block left before the text blocks."""
+    return not (carve is None or carve.sa_drop_rate == 0.0
+                or -(-s // 128) <= carve.txt_block_num)
+
+
+def _joint_attention_sp(q, k, v, carve: HYCarve | None, img_len: int,
+                        seqlen, mesh, img_total: int):
+    """``_joint_attention`` on a mesh: q/k/v are [this rank's image slice
+    (``img_len`` of ``img_total`` tokens) | the whole text]; the output
+    has the same rows, the text rows identical on every rank."""
+    b, s, n, hd = q.shape
+    if carve is not None and carve.sel_mask is not None:
+        raise NotImplementedError(
+            "HYCarve.sel_mask (selection replay) is single-device only — "
+            "the sequence-parallel paths have no planner-bypass plumbing")
+    st = s - img_len
+    img = (q[:, :img_len], k[:, :img_len], v[:, :img_len])
+    txt = (q[:, img_len:], k[:, img_len:], v[:, img_len:])
+    if ulysses_fits(n, mesh):
+        kw = dict(sparse=False, seqlen=seqlen)
+        if _carves(carve, img_total + st):
+            nb = -(-(img_total + st) // 128)
+            kw.update(sparse=True, block_neighbors=carve.block_neighbors,
+                      top_k=int((1.0 - carve.sa_drop_rate)
+                                * (img_total // 128)),
+                      p_remain=carve.p_remain,
+                      text_start_block=nb - carve.txt_block_num,
+                      text_blocks=carve.txt_block_num,
+                      text_amp=carve.text_amp, q_rows=carve.q_rows,
+                      joint_sel=carve.joint_sel)
+        img_out, txt_out = ulysses_joint_attention(
+            *img, *txt, mesh, length=img_total, **kw)
+    else:
+        # dense ring (x Ulysses on a ring axis) over the image tokens with
+        # the text K|V folded in last; the text query rows attend every
+        # key, so the image K|V is gathered for them once
+        ring = ring_ulysses_attention if "ring" in mesh.mesh_dim_names \
+            else ring_attention
+        img_out = ring(
+            *img, mesh, joint_k=txt[1], joint_v=txt[2],
+            joint_kv_len=seqlen - img_total, length=img_total)
+        kv = gather_tokens(torch.cat(img[1:], dim=-1), mesh, img_total)
+        txt_out = attention_bshd(
+            txt[0], torch.cat([kv[..., :hd], txt[1]], dim=1),
+            torch.cat([kv[..., hd:], txt[2]], dim=1), kv_len=seqlen)
+    return torch.cat([img_out, txt_out], dim=1).reshape(b, s, n * hd)
+
+
+def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen,
+                     mesh=None, img_total: int | None = None):
     """Joint img+txt attention: sparse video rows and dense text rows in
     one kernel launch; dense fallback when there is no carving or the
     sequence is too short to leave a video block before the text blocks.
-    q/k/v [B, S, H, D] -> [B, S, H*D]."""
+    q/k/v [B, S, H, D] -> [B, S, H*D]. On a mesh, ``_joint_attention_sp``
+    (``img_len`` is this rank's slice of ``img_total`` image tokens)."""
+    if mesh is not None:
+        return _joint_attention_sp(q, k, v, carve, img_len, seqlen, mesh,
+                                   img_total)
     b, s, n, hd = q.shape
     s_pad = -(-s // 128) * 128
-    carved = not (carve is None or carve.sa_drop_rate == 0.0
-                  or s_pad // 128 <= carve.txt_block_num)
+    carved = _carves(carve, s)
     if carve is not None and carve.sel_mask is not None and not carved:
         # a recorded selection must run on the sparse kernel, not be
         # silently dropped for dense attention
@@ -342,9 +410,10 @@ class DoubleBlock(nn.Module):
         self.txt_mlp = L.MLP(d, mh, d, dt, device)
 
     def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen,
-                tr=None):
+                tr=None, mesh=None, img_total=None):
         """``tr``: None, or the token replacement's ``vec`` (the t=0
-        modulation vector) and ``mask_img`` (first-frame image tokens)."""
+        modulation vector) and ``mask_img`` (first-frame image tokens).
+        On a ``mesh``, img is this rank's slice of ``img_total`` tokens."""
         b, si, d = img.shape
         st = txt.shape[1]
         n, hd = self.cfg.heads_num, self.cfg.head_dim
@@ -372,7 +441,8 @@ class DoubleBlock(nn.Module):
         q = torch.cat([img_q, txt_q], dim=1)
         k = torch.cat([img_k, txt_k], dim=1)
         v = torch.cat([img_qkv[:, :, 2], txt_qkv[:, :, 2]], dim=1)
-        attn = _joint_attention(q, k, v, carve, si, seqlen)
+        attn = _joint_attention(q, k, v, carve, si, seqlen, mesh,
+                                img_total)
         img_attn, txt_attn = attn[:, :si], attn[:, si:]
 
         img = _gate_tr(img, self.img_proj(img_attn), im[2], tr_img, "gate1")
@@ -402,9 +472,10 @@ class SingleBlock(nn.Module):
         self.k_norm = L.param((hd,), torch.float32, device)
 
     def forward(self, x, vec, carve, rope_cos, rope_sin, txt_len, seqlen,
-                tr=None):
+                tr=None, mesh=None, img_total=None):
         """``tr``: None, or the token replacement's ``vec`` and
-        ``mask_full`` (first-frame tokens of the joint sequence)."""
+        ``mask_full`` (first-frame tokens of the joint sequence). On a
+        ``mesh``, x is [this rank's image slice | the whole text]."""
         b, s, d = x.shape
         n, hd = self.cfg.heads_num, self.cfg.head_dim
         shift, scale, gate = self.modulation(L.silu(vec)).float()[:, None] \
@@ -426,7 +497,8 @@ class SingleBlock(nn.Module):
                        q[:, img_len:]], dim=1)
         k = torch.cat([L.apply_rope(k[:, :img_len], rope_cos, rope_sin),
                        k[:, img_len:]], dim=1)
-        attn = _joint_attention(q, k, v, carve, img_len, seqlen)
+        attn = _joint_attention(q, k, v, carve, img_len, seqlen, mesh,
+                                img_total)
         out = self.linear2(torch.cat([attn, L.gelu_tanh(mlp)], dim=-1))
         return _gate_tr(x, out, gate, tr_full, "gate")
 
@@ -472,8 +544,11 @@ class HYVideoDiT(nn.Module):
         return next(self.parameters()).device
 
     def embed(self, x, t, text_states, text_mask, text_states_2,
-              carve: HYCarve | None = None, guidance=None):
-        """Patchify + curve reorder + refiner + modulation vector."""
+              carve: HYCarve | None = None, guidance=None, mesh=None):
+        """Patchify + curve reorder + refiner + modulation vector. With a
+        ``mesh``, img comes back as this rank's slice of the curve-ordered
+        tokens, with its rows of the RoPE tables and of the token-replace
+        mask; ``aux["img_len"]`` is the whole count either way."""
         cfg = self.cfg
         b = x.shape[0]
         img, grid = L.patchify_3d(self.img_in, x.to(cfg.torch_dtype),
@@ -516,35 +591,55 @@ class HYVideoDiT(nn.Module):
                                  device=x.device)
         aux = dict(vec=vec, grid=grid, rope_cos=rope_cos, rope_sin=rope_sin,
                    txt_len=txt.shape[1], seqlens=seqlens.to(torch.int32),
-                   tr=tr)
+                   tr=tr, img_len=img.shape[1])
+        if mesh is not None:
+            start, stop = token_range(img.shape[1], token_mesh(mesh))
+            img = img[:, start:stop].clone()
+            aux["rope_cos"] = rope_cos[start:stop]
+            aux["rope_sin"] = rope_sin[start:stop]
+            if tr is not None:
+                mask_img = tr["mask_img"][start:stop]
+                tr.update(mask_img=mask_img, mask_full=torch.cat(
+                    [mask_img, tr["mask_full"][aux["img_len"]:]]))
         return img, txt, aux
 
     def trunk(self, img, txt, aux, carve: HYCarve | None = None,
-              remat: bool = False, scan: bool = False):
-        """Double + single block stack; img is curve-ordered in and out.
+              remat: bool = False, scan: bool = False, mesh=None):
+        """Double + single block stack; img is curve-ordered in and out
+        (on a ``mesh``, this rank's slice of it, as ``embed`` gives it).
         ``remat`` checkpoints each block: the backward recomputes its
         forward (kernels included) instead of keeping its activations."""
         if scan:
             raise NotImplementedError("scan is an XLA compile device and is "
                                       "not ported")
+        if mesh is not None:
+            mesh = token_mesh(mesh)
         vec, seqlen, tr = aux["vec"], aux["seqlens"], aux["tr"]
         rope_cos, rope_sin = aux["rope_cos"], aux["rope_sin"]
+        sp = (mesh, aux["img_len"]) if mesh is not None else (None, None)
+        if mesh is not None and not ulysses_fits(self.cfg.heads_num, mesh) \
+                and _carves(carve, aux["img_len"] + aux["txt_len"]):
+            warn_carving_disabled(self.cfg.heads_num, mesh)
 
         def run(blk, *args):
             return L.remat_call(blk, *args) if remat else blk(*args)
 
         for blk in self.double_blocks:
             img, txt = run(blk, img, txt, vec, carve, rope_cos, rope_sin,
-                           seqlen, tr)
+                           seqlen, tr, *sp)
         x = torch.cat([img, txt], dim=1)
         for blk in self.single_blocks:
             x = run(blk, x, vec, carve, rope_cos, rope_sin, aux["txt_len"],
-                    seqlen, tr)
+                    seqlen, tr, *sp)
         return x[:, :img.shape[1]]
 
-    def head(self, img, aux, carve: HYCarve | None = None):
-        """Inverse curve + modulated final layer + unpatchify (f32 out)."""
+    def head(self, img, aux, carve: HYCarve | None = None, mesh=None):
+        """Inverse curve + modulated final layer + unpatchify (f32 out). On
+        a ``mesh`` the ranks' slices are gathered first: every rank
+        returns the same velocity."""
         cfg = self.cfg
+        if mesh is not None:
+            img = gather_tokens(img, token_mesh(mesh), aux["img_len"])
         if carve is not None:
             img = img[:, carve.inverse_order]
         fl = self.final_layer
@@ -560,16 +655,16 @@ class HYVideoDiT(nn.Module):
                 carve: HYCarve | None = None, guidance=None, mesh=None,
                 remat: bool = False):
         """Velocity prediction. x [B, C, F, H, W]; text_states [B, L, 4096];
-        text_states_2 [B, 768]; ``remat`` as in ``trunk``."""
-        if mesh is not None:
-            raise NotImplementedError("sequence parallelism is not ported")
+        text_states_2 [B, 768]; ``remat`` as in ``trunk``. With a ``mesh``
+        (``parallel.make_sp_mesh``) the image tokens are sliced over its
+        ranks after ``embed`` and gathered before ``head``."""
         if text_states_2 is None:
             text_states_2 = torch.zeros(
                 (x.shape[0], self.cfg.text_states_dim_2), device=x.device)
         img, txt, aux = self.embed(x, t, text_states, text_mask,
-                                   text_states_2, carve, guidance)
-        img = self.trunk(img, txt, aux, carve, remat=remat)
-        return self.head(img, aux, carve)
+                                   text_states_2, carve, guidance, mesh)
+        img = self.trunk(img, txt, aux, carve, remat=remat, mesh=mesh)
+        return self.head(img, aux, carve, mesh)
 
 
 @torch.no_grad()

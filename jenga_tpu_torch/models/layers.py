@@ -165,14 +165,15 @@ def modulate(x, shift=None, scale=None):
 
 def patchify_3d(p, x, patch):
     """[B, C, F, H, W] -> ([B, L, dim], grid): block reshape + one matmul
-    (params ``w`` [dim, C*pt*ph*pw])."""
+    (``p`` an ``Affine`` with ``w`` [dim, C*pt*ph*pw]). It is called, not
+    read, so that its forward hooks (FSDP's gather) run."""
     b, c, f, h, w = x.shape
     pt, ph, pw = patch
     gt, gh, gw = f // pt, h // ph, w // pw
     x = x.reshape(b, c, gt, pt, gh, ph, gw, pw)
     x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
     x = x.reshape(b, gt * gh * gw, c * pt * ph * pw)
-    return linear(p, x), (gt, gh, gw)
+    return p(x), (gt, gh, gw)
 
 
 def unpatchify_3d(x, grid, patch, out_channels: int,

@@ -35,8 +35,17 @@ selection [B, H, nb, nb] in every layer instead of the planner, with the
 JAX package's guards: on the dense fallback it raises, and a mask of
 another grid fails its shape check.
 
-Not ported (raises ``NotImplementedError``): the sequence-parallel
-``mesh``.
+Sequence parallelism (``mesh=``, ``parallel/``): the tokens are sliced
+over the ``sp`` axis alone and copied over any other (``ring``, ``dp``),
+as in the JAX package. ``embed`` keeps this rank's slice of the
+curve-ordered, 128-padded tokens, each layer's self-attention runs under
+Ulysses with full-sequence RoPE tables (carved only when
+``sa_drop_rate > 0.25``, as on one device), or as dense ring attention
+over ``sp`` when the heads do not divide it (a carved layer then raises
+``ValueError``, as in the JAX package). Cross-attention needs no
+collective: each rank's queries attend the whole context. ``head``
+gathers the slices first, so the TeaCache residual lives in the sliced
+space.
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ from torch import nn
 from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
+from ..parallel.mesh import (gather_tokens, mesh_dims, shard_tokens,
+                             token_mesh, token_range, ulysses_fits)
+from ..parallel.ring import ring_attention
+from ..parallel.ulysses import ulysses_self_attention
 from ..sparse.planner import build_block_mask
 from . import layers as L
 
@@ -204,15 +217,63 @@ class ImageEmbedding(nn.Module):
         return L.layer_norm(x, self.norm_out.w, self.norm_out.b)
 
 
+def _token_mesh(mesh):
+    """Wan's tokens are sliced over ``sp`` and copied over ``ring``."""
+    return token_mesh(mesh, ("sp",))
+
+
+def _sp_attention(q, k, v, cfg: WanConfig, carve: WanCarve | None,
+                  rope_cos, rope_sin, top_k, mesh, length: int):
+    """Self-attention of this rank's token slice (of ``length`` tokens) on
+    the ``("sp",)`` token mesh: Ulysses when the heads divide it, else
+    dense ring attention."""
+    if carve is not None and carve.sel_mask is not None:
+        raise NotImplementedError(
+            "WanCarve.sel_mask (selection replay) is single-device only — "
+            "the sequence-parallel paths have no planner-bypass plumbing")
+    n = cfg.num_heads
+    sparse = carve is not None and carve.sa_drop_rate > 0.25
+    if ulysses_fits(n, mesh):
+        kw = dict(sparse=False)
+        if sparse:
+            if top_k is None:
+                top_k = int(length // 128 * (1.0 - carve.sa_drop_rate))
+            kw = dict(sparse=True, block_neighbors=carve.block_neighbors,
+                      top_k=top_k, p_remain=carve.p_remain,
+                      seqlen=carve.seqlen,
+                      first_frame_blocks=carve.first_frame_blocks,
+                      q_rows=carve.q_rows, joint_sel=carve.joint_sel)
+        return ulysses_self_attention(q, k, v, rope_cos, rope_sin, mesh,
+                                      length=length, **kw)
+    nu = mesh_dims(mesh)[2]
+    if sparse and n % nu:
+        raise ValueError(
+            f"carved attention requires num_heads ({n}) divisible by the "
+            f"sp mesh ({nu}) — the planner needs the full sequence per "
+            f"device (Ulysses); use more heads or a smaller mesh, or "
+            f"disable carving for ring attention")
+    start, stop = token_range(length, mesh)
+    q = L.apply_rope(q, rope_cos[start:stop], rope_sin[start:stop])
+    k = L.apply_rope(k, rope_cos[start:stop], rope_sin[start:stop])
+    return ring_attention(q, k, v, mesh, length=length)
+
+
 def _self_attention(p: WanAttention, x, cfg: WanConfig,
-                    carve: WanCarve | None, rope_cos, rope_sin, top_k=None):
+                    carve: WanCarve | None, rope_cos, rope_sin, top_k=None,
+                    mesh=None, length: int | None = None):
     """Carved (or dense-fallback) self-attention over curve-ordered tokens.
-    ``top_k`` overrides the drop rate's selection floor (warm-up steps)."""
+    ``top_k`` overrides the drop rate's selection floor (warm-up steps).
+    On a ``mesh``, x is this rank's slice of ``length`` tokens and the
+    RoPE tables cover all of them (``_sp_attention``)."""
     b, s, d = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
     k = L.rms_norm(p.k(x), p.norm_k, cfg.eps).reshape(b, s, n, hd)
     v = p.v(x).reshape(b, s, n, hd)
+    if mesh is not None:
+        out = _sp_attention(q, k, v, cfg, carve, rope_cos, rope_sin, top_k,
+                            mesh, length)
+        return p.o(out.reshape(b, s, d))
     q = L.apply_rope(q, rope_cos, rope_sin)
     k = L.apply_rope(k, rope_cos, rope_sin)
 
@@ -299,13 +360,14 @@ class WanBlock(nn.Module):
         self.modulation = L.param((6, d), torch.float32, device)
 
     def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None,
-                image_tokens: int = 0):
+                image_tokens: int = 0, mesh=None, length=None):
+        """On a ``mesh``, x is this rank's slice of ``length`` tokens."""
         cfg = self.cfg
         e = self.modulation[None].float() + e6            # [B, 6, d] f32
         e0, e1, e2, e3, e4, e5 = (e[:, i:i + 1] for i in range(6))
         y = L.modulate(L.layer_norm(x, eps=cfg.eps), shift=e0, scale=e1)
         y = _self_attention(self.self_attn, y, cfg, carve, rope_cos,
-                            rope_sin, top_k)
+                            rope_sin, top_k, mesh, length)
         x = _gated(x, y, e2)
         y = L.layer_norm(x, self.norm3.w, self.norm3.b, cfg.eps) \
             if cfg.cross_attn_norm else x
@@ -360,11 +422,13 @@ class WanDiT(nn.Module):
         return te.fc2(L.silu(te.fc1(temb))).float()
 
     def embed(self, x, t, context, carve: WanCarve | None = None,
-              clip_fea=None, y=None):
+              clip_fea=None, y=None, mesh=None):
         """Patchify, curve reorder (zero pad to a block multiple), time and
         text embeddings. Returns ``(h0, aux)``. I2V: ``y`` [B, 20, F, H, W]
         joins ``x`` on the channel axis; ``clip_fea`` [B, 257, 1280]
-        becomes the image tokens ahead of the text context."""
+        becomes the image tokens ahead of the text context. With a
+        ``mesh``, h0 is this rank's slice of the (padded) tokens, and
+        ``aux["seq_total"]`` their whole count."""
         cfg = self.cfg
         if y is not None:
             x = torch.cat([x, y], dim=1)
@@ -385,17 +449,20 @@ class WanDiT(nn.Module):
             s_pad = -(-s // 128) * 128
             h = torch.nn.functional.pad(h, (0, 0, 0, s_pad - s))
         aux = dict(e=e, e6=e6, ctx=ctx, grid=grid, seq=s,
-                   image_tokens=image_tokens)
+                   image_tokens=image_tokens, seq_total=h.shape[1])
+        if mesh is not None:
+            h = shard_tokens(h, _token_mesh(mesh))
         return h, aux
 
     def trunk(self, h, aux, carve: WanCarve | None = None, top_k=None,
               mesh=None, remat: bool = False):
         """The block stack over curve-ordered hidden states (the TeaCache
-        residual ``h_out - h_in`` lives in this space). ``remat``
-        checkpoints each block: the backward recomputes its forward
-        (kernels included) instead of keeping its activations."""
+        residual ``h_out - h_in`` lives in this space; on a ``mesh``, in
+        this rank's slice of it). ``remat`` checkpoints each block: the
+        backward recomputes its forward (kernels included) instead of
+        keeping its activations."""
         if mesh is not None:
-            raise NotImplementedError("sequence parallelism is not ported")
+            mesh = _token_mesh(mesh)
         if carve is not None:
             rope_cos, rope_sin = carve.rope_cos, carve.rope_sin
         else:
@@ -404,14 +471,17 @@ class WanDiT(nn.Module):
                                                            aux["grid"]))
         for blk in self.blocks:
             args = (h, aux["e6"], aux["ctx"], carve, rope_cos, rope_sin,
-                    top_k, aux["image_tokens"])
+                    top_k, aux["image_tokens"], mesh, aux["seq_total"])
             h = L.remat_call(blk, *args) if remat else blk(*args)
         return h
 
-    def head(self, h, aux, carve: WanCarve | None = None):
+    def head(self, h, aux, carve: WanCarve | None = None, mesh=None):
         """Inverse curve order (dropping the pad), modulated zero-init head,
-        unpatchify in Wan's feature order (f32 out)."""
+        unpatchify in Wan's feature order (f32 out). On a ``mesh`` the
+        ranks' slices are gathered first."""
         cfg = self.cfg
+        if mesh is not None:
+            h = gather_tokens(h, _token_mesh(mesh), aux["seq_total"])
         if carve is not None:
             h = h[:, carve.inverse_order]
         hl = self.head_layer
@@ -427,10 +497,11 @@ class WanDiT(nn.Module):
                 remat: bool = False):
         """Velocity prediction. x [B, C, F, H, W]; t [B]; context
         [B, text_len, text_dim] padded text embeddings; I2V: ``clip_fea``
-        and ``y`` (see ``embed``). f32 out."""
-        h, aux = self.embed(x, t, context, carve, clip_fea, y)
+        and ``y`` (see ``embed``); ``mesh`` (``parallel.make_sp_mesh``)
+        slices the tokens over its ``sp`` ranks. f32 out."""
+        h, aux = self.embed(x, t, context, carve, clip_fea, y, mesh)
         h = self.trunk(h, aux, carve, top_k, mesh, remat)
-        return self.head(h, aux, carve)
+        return self.head(h, aux, carve, mesh)
 
 
 @torch.no_grad()

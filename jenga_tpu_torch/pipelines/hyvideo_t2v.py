@@ -12,7 +12,10 @@ on the new schedule, upsamples them trilinearly and re-noises them to the
 next step's sigma, with no Euler step; a switch between full-resolution
 stages (Base) takes the Euler step. The ``initial_latents`` and
 ``stage_noises`` hooks let a test feed both implementations the same
-random draws.
+random draws. With a sequence-parallel ``mesh`` every rank runs the loop:
+the model slices the image tokens after ``embed`` and gathers them before
+``head``, so the cached residual is this rank's slice and the velocity,
+the scheduler and every draw are identical on every rank.
 """
 
 from __future__ import annotations
@@ -61,12 +64,14 @@ class HYVideoT2VPipeline:
 
     VAE_STRIDE = (4, 8, 8)  # the "884" causal VAE
 
-    def __init__(self, model: hy.HYVideoDiT, vae_decode=None):
+    def __init__(self, model: hy.HYVideoDiT, vae_decode=None, mesh=None):
         """``vae_decode(latents)`` turns the final latents into the video
-        that ``generate`` returns (the sampler's ``decode_latents``)."""
+        that ``generate`` returns (the sampler's ``decode_latents``);
+        ``mesh`` a sequence-parallel mesh (``parallel.make_sp_mesh``)."""
         self.model = model
         self.cfg = model.cfg
         self.vae_decode = vae_decode
+        self.mesh = mesh
 
     def _output(self, latents, decode: bool):
         """The decoded video when a VAE is attached and ``decode``, else
@@ -190,13 +195,13 @@ class HYVideoT2VPipeline:
                                                                 stage_idx)
             x = x.expand(batch, *x.shape[1:])
             img, txth, aux = model.embed(x, t, txt, mask, txt2, carve,
-                                         guidance)
+                                         guidance, self.mesh)
             if not compute[i] and residual is not None:
-                v = model.head(img + residual, aux, carve)
+                v = model.head(img + residual, aux, carve, self.mesh)
             else:
-                img2 = model.trunk(img, txth, aux, carve)
+                img2 = model.trunk(img, txth, aux, carve, mesh=self.mesh)
                 residual = img2 - img
-                v = model.head(img2, aux, carve)
+                v = model.head(img2, aux, carve, self.mesh)
             if cfg_on:
                 v = v[0:1] + opts.guidance_scale * (v[1:2] - v[0:1])
             switch = i in splits and stage_idx + 1 < len(carves)

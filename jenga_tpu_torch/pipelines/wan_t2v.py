@@ -28,7 +28,11 @@ start forced; its metric is the relative L1 change of the modulation
 embedding, computed here in torch, rescaled by the checkpoint's
 polynomial, keyed by the pipeline's ``model_id`` and ``use_ret_steps``.
 ``initial_latents``, ``stage2_noise`` and ``on_step`` let a test feed both
-implementations the same random draws and watch the trajectory.
+implementations the same random draws and watch the trajectory. With a
+sequence-parallel ``mesh`` every rank runs the loop on its slice of the
+tokens (``WanDiT``'s ``mesh``); the TeaCache residual is the slice's, and
+the velocity, the solver state and every draw are identical on every
+rank.
 """
 
 from __future__ import annotations
@@ -88,15 +92,18 @@ class WanT2VPipeline:
     VAE_STRIDE = (4, 8, 8)
 
     def __init__(self, model: wan_lib.WanDiT,
-                 model_id: str = "wan-t2v-1.3b", vae_decode=None):
+                 model_id: str = "wan-t2v-1.3b", vae_decode=None,
+                 mesh=None):
         """``model_id`` names the checkpoint whose TeaCache polynomial the
         skip schedule uses (``TEACACHE_COEFFS``; an unknown id takes the
         1.3B one, as in the JAX package); ``vae_decode(latents)`` turns the
-        final latents into the video that ``generate`` returns."""
+        final latents into the video that ``generate`` returns; ``mesh`` a
+        sequence-parallel mesh (``parallel.make_sp_mesh``)."""
         self.model = model
         self.cfg = model.cfg
         self.model_id = model_id
         self.vae_decode = vae_decode
+        self.mesh = mesh
 
     def _output(self, latents, decode: bool):
         """The decoded video when a VAE is attached and ``decode``, else
@@ -261,7 +268,7 @@ class WanT2VPipeline:
         """The solver loop over the host's step plan, CFG on a batch of 2;
         ``cond`` holds the I2V inputs (``clip_fea``, ``y``, batch 2) that
         every embed takes."""
-        model = self.model
+        model, mesh = self.model, self.mesh
         dev = model.device
         switch = opts.turbo_switch_step if opts.enable_turbo else None
         carve = carves[0]
@@ -274,20 +281,20 @@ class WanT2VPipeline:
         for idx, kind in enumerate(kinds):
             t2 = torch.full((2,), schedule.timestep(idx), device=dev)
             x2 = torch.cat([latents, latents])
-            h0, aux = model.embed(x2, t2, ctx2, carve, **cond)
+            h0, aux = model.embed(x2, t2, ctx2, carve, mesh=mesh, **cond)
             if kind == "skip":
-                v2 = model.head(h0 + residual, aux, carve)
+                v2 = model.head(h0 + residual, aux, carve, mesh)
             else:
                 if kind == "dense":
                     h1 = model.trunk(h0, aux, dataclasses.replace(
-                        carve, sa_drop_rate=0.0))
+                        carve, sa_drop_rate=0.0), mesh=mesh)
                 else:
                     drop = self._drop_rate(opts, idx, n)
                     nb = math.ceil(carve.seqlen / 128)
                     top_k = max(int(nb * (1.0 - drop)), 1)
-                    h1 = model.trunk(h0, aux, carve, top_k)
+                    h1 = model.trunk(h0, aux, carve, top_k, mesh)
                 residual = h1 - h0
-                v2 = model.head(h1, aux, carve)
+                v2 = model.head(h1, aux, carve, mesh)
             v = v2[1:2] + opts.guide_scale * (v2[0:1] - v2[1:2])
             if idx == switch:
                 # x0, upsample, and re-noise on the first schedule's next

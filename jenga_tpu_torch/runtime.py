@@ -33,6 +33,13 @@ the VAE weights on the CPU; the prompt is encoded there, and the VAE's
 weights go to the card for one decode or encode and back after it. Wan's
 ``t5_on_host`` keeps UMT5 on the CPU. Tokenizing a prompt needs the
 ``transformers`` package (``text.HFTokenizerAdapter``); loading does not.
+
+Sequence parallelism: ``sp_degree`` (Ulysses) and ``ring_degree`` on
+every constructor join the process group (``parallel.init_distributed``:
+torchrun's environment, NCCL on the card, gloo on the CPU), build the mesh
+(``world`` must equal their product) and shard the DiT's large weights
+over it (FSDP, ``parallel.shard_params_fsdp``); every rank builds or loads
+the same weights first. Run one process per card under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from .models.fp8 import quantize_tree_fp8
 from .models.hyvideo import (HUNYUAN_VIDEO_T2V, HYVideoConfig, HYVideoDiT,
                              hy_i2v_config, init_hyvideo_)
 from .models.wan import WanConfig, WanDiT, init_wan_
+from .parallel.mesh import (init_distributed, make_sp_mesh,
+                            shard_params_fsdp)
 from .pipelines.hyvideo_i2v import HYVideoI2VPipeline
 from .pipelines.hyvideo_t2v import HYVideoT2VPipeline
 from .pipelines.wan_i2v import WanI2VPipeline, i2v_latent_size
@@ -118,6 +127,16 @@ def _clip_normalize(img, size: int, device) -> torch.Tensor:
     return ((x - mean) / std)[None]
 
 
+def _sp_mesh(sp_degree: int, ring_degree: int, device):
+    """The sequence-parallel mesh of ``sp_degree`` x ``ring_degree`` ranks,
+    or None for one process. A launcher with more ranks than that (or
+    fewer) fails in ``make_sp_mesh`` with the composition message."""
+    sp_degree, ring_degree = max(1, int(sp_degree)), max(1, int(ring_degree))
+    if init_distributed(device) == 1 and sp_degree * ring_degree == 1:
+        return None
+    return make_sp_mesh(ring=ring_degree, ulysses=sp_degree, device=device)
+
+
 def _build(model_cls, init_fn, cfg, params, device, seed):
     model = model_cls(cfg, device=device)
     if params is None:
@@ -170,9 +189,11 @@ class HunyuanVideoSampler:
     def __init__(self, cfg: HYVideoConfig, params=None, device="cuda",
                  seed: int = 0, i2v: bool = False, use_fp8: bool = False,
                  vae: vae_hy.HYVAE | None = None, text_encoder=None,
-                 text_encoder_2=None, offload: bool = False):
+                 text_encoder_2=None, offload: bool = False,
+                 sp_degree: int = 1, ring_degree: int = 1):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = _sp_mesh(sp_degree, ring_degree, self.device)
         self.offload = offload
         if offload:
             for part in (vae, text_encoder and text_encoder[2],
@@ -187,8 +208,11 @@ class HunyuanVideoSampler:
         if use_fp8:
             # after the init or load, as the JAX from_pretrained does
             quantize_tree_fp8(self.model)
+        if self.mesh is not None:
+            shard_params_fsdp(self.model, self.mesh)
         pipe_cls = HYVideoI2VPipeline if i2v else HYVideoT2VPipeline
-        self.pipeline = pipe_cls(self.model, vae_decode=self.decode_latents)
+        self.pipeline = pipe_cls(self.model, vae_decode=self.decode_latents,
+                                 mesh=self.mesh)
 
     @classmethod
     def from_pretrained(cls, ckpt_dir: str | None = None, i2v: bool = False,
@@ -196,7 +220,8 @@ class HunyuanVideoSampler:
                         use_fp8: bool = False, lora_path: str | None = None,
                         lora_alpha: float = 1.0,
                         use_cpu_offload: bool = False, device="cuda",
-                        i2v_condition_type: str = "token_replace"):
+                        i2v_condition_type: str = "token_replace",
+                        sp_degree: int = 1, ring_degree: int = 1):
         """The published model (``hy_i2v_config(i2v_condition_type)`` with
         ``i2v``) from ``ckpt_dir``: the DiT (``use_fp8`` prefers the fp8
         file, dequantized, then quantizes the loaded weights to e4m3 as
@@ -204,7 +229,8 @@ class HunyuanVideoSampler:
         VAE and both text encoders where their files are; the DiT from a
         seeded init where its file is not, or without ``ckpt_dir``. A DiT
         whose ``img_in`` takes another channel count than the config
-        raises."""
+        raises. ``sp_degree``/``ring_degree``: sequence parallelism (the
+        module docstring)."""
         device = resolve_device(device)
         base = dataclasses.replace(HUNYUAN_VIDEO_T2V, dtype=dtype)
         cfg = hy_i2v_config(i2v_condition_type, base) if i2v else base
@@ -246,7 +272,8 @@ class HunyuanVideoSampler:
                 os.path.join(ckpt_dir, "text_encoder_2"), aux)
         return cls(cfg, params, device, seed, i2v=i2v, use_fp8=use_fp8,
                    vae=vae, text_encoder=text_encoder,
-                   text_encoder_2=text_encoder_2, offload=use_cpu_offload)
+                   text_encoder_2=text_encoder_2, offload=use_cpu_offload,
+                   sp_degree=sp_degree, ring_degree=ring_degree)
 
     # ---------------------------------------------------------- encoders
 
@@ -482,32 +509,39 @@ class WanSampler:
     def __init__(self, cfg: WanConfig, params=None, device="cuda",
                  seed: int = 0, model_id: str = "wan-t2v-1.3b",
                  vae: vae_wan.WanVAE | None = None, t5=None,
-                 clip_vision=None):
+                 clip_vision=None, sp_degree: int = 1, ring_degree: int = 1):
         self.cfg = cfg
         self.vae = vae
         self.t5 = t5
         self.clip_vision = clip_vision
         self.device = resolve_device(device)
+        self.mesh = _sp_mesh(sp_degree, ring_degree, self.device)
         self.model = _build(WanDiT, init_wan_, cfg, params, self.device,
                             seed)
+        if self.mesh is not None:
+            shard_params_fsdp(self.model, self.mesh)
         pipe_cls = WanI2VPipeline if cfg.model_type == "i2v" \
             else WanT2VPipeline
         self.pipeline = pipe_cls(self.model, model_id=model_id,
-                                 vae_decode=self.decode_latents)
+                                 vae_decode=self.decode_latents,
+                                 mesh=self.mesh)
 
     @classmethod
     def from_task(cls, task: str, params=None, device="cuda",
-                  seed: int = 0, vae: vae_wan.WanVAE | None = None):
+                  seed: int = 0, vae: vae_wan.WanVAE | None = None,
+                  sp_degree: int = 1, ring_degree: int = 1):
         """The published config of ``task`` (t2v-1.3B, t2v-14B, i2v-14B)
         with its ``model_id``."""
         return cls(cls.CONFIGS[task], params, device, seed,
-                   model_id=cls.MODEL_IDS[task], vae=vae)
+                   model_id=cls.MODEL_IDS[task], vae=vae,
+                   sp_degree=sp_degree, ring_degree=ring_degree)
 
     @classmethod
     def from_pretrained(cls, task: str = "t2v-1.3B",
                         ckpt_dir: str | None = None, seed: int = 0,
                         dtype: str = "bfloat16", t5_on_host: bool = False,
-                        device="cuda"):
+                        device="cuda", sp_degree: int = 1,
+                        ring_degree: int = 1):
         """The published model of ``task`` from ``ckpt_dir``: the DiT
         (which must be there: a directory without one raises
         ``FileNotFoundError`` rather than run random weights), the VAE, T5
@@ -536,7 +570,8 @@ class WanSampler:
             if cfg.model_type == "i2v":
                 clip_vision = cls._load_clip_vision(ckpt_dir, device)
         return cls(cfg, params, device, seed, model_id=cls.MODEL_IDS[task],
-                   vae=vae, t5=t5, clip_vision=clip_vision)
+                   vae=vae, t5=t5, clip_vision=clip_vision,
+                   sp_degree=sp_degree, ring_degree=ring_degree)
 
     @staticmethod
     def _dit_state_dict(ckpt_dir):

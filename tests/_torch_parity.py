@@ -47,6 +47,19 @@ def np_params(cfg_kwargs, seed=0, perturb=True):
     return cfg, params
 
 
+def wan_np_params(cfg_kwargs, seed=0):
+    """The Wan JAX init as a numpy tree, its zero-init head perturbed."""
+    from jenga_tpu.models.wan import WanConfig, init_wan_params
+    cfg = WanConfig(**cfg_kwargs)
+    params = jax.tree.map(np.asarray,
+                          init_wan_params(jax.random.PRNGKey(seed), cfg))
+    w = params["head"]["linear"]["w"]
+    params["head"]["linear"]["w"] = (np.random.default_rng(seed).
+                                     standard_normal(w.shape) * 0.05
+                                     ).astype(w.dtype)
+    return cfg, params
+
+
 def torch_model(cfg_kwargs, params):
     model = HYVideoDiT(HYVideoConfig(**cfg_kwargs))
     model.load_state_dict(hyvideo_params_from_jax(params), strict=True)

@@ -32,7 +32,8 @@ from jenga_tpu_torch.diffusion import skip as pt_skip
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = ["curves/gilbert.py", "curves/blocks.py", "diffusion/skip.py",
-          "configs/validate.py", "utils/video.py", "train/dataset.py"]
+          "configs/validate.py", "utils/video.py", "train/dataset.py",
+          "utils/logging.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -158,14 +159,18 @@ def _loaded(prefixes):
 
 
 def test_port_imports_neither_jenga_tpu_nor_jax():
-    """A fresh interpreter imports every module of the port (the tools
-    and the training package included) and finds no module of jenga_tpu
-    or JAX loaded."""
+    """A fresh interpreter imports every module of the port (the tools,
+    the training package and the sequence-parallel package included) and
+    finds no module of jenga_tpu or JAX loaded."""
     names = _modules_after_importing_the_port()[0]
     assert "jenga_tpu_torch.tools.kernel_split_probe" in names
     assert {"jenga_tpu_torch.train", "jenga_tpu_torch.train.transport",
             "jenga_tpu_torch.train.lora",
             "jenga_tpu_torch.train.dataset"} <= set(names)
+    assert {"jenga_tpu_torch.parallel", "jenga_tpu_torch.parallel.mesh",
+            "jenga_tpu_torch.parallel.ulysses",
+            "jenga_tpu_torch.parallel.ring",
+            "jenga_tpu_torch.utils.logging"} <= set(names)
     assert _loaded(("jax", "jenga_tpu")) == []
     assert importlib.import_module("jenga_tpu_torch.curves.blocks") \
         is pt_blocks

@@ -77,8 +77,10 @@ def test_patchify_unpatchify(channel_last):
     w = RNG.standard_normal((16, 32)).astype(np.float32)
     jy, jgrid = JL.patchify_3d({"w": jnp.asarray(w)}, jnp.asarray(x),
                                (1, 2, 2))
-    ty, tgrid = TL.patchify_3d(types.SimpleNamespace(w=t(w.T.copy()), b=None),
-                               t(x), (1, 2, 2))
+    proj = TL.Affine(16, 32, torch.float32, "cpu", bias=False)
+    with torch.no_grad():
+        proj.w.copy_(t(w.T.copy()))
+    ty, tgrid = TL.patchify_3d(proj, t(x), (1, 2, 2))
     assert tgrid == jgrid
     _close(ty, jy, 1e-4)
     feat = RNG.standard_normal((1, 36, 16)).astype(np.float32)
