@@ -6,11 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints its seconds; any failure exits non-zero before the
 result line):
   1. toolchain: torch/CUDA versions, nvcc, the card's name and power
-     limit; builds all six kernel sources from jenga_tpu_torch/csrc/ (one
+     limit; builds all seven kernel sources from jenga_tpu_torch/csrc/ (one
      nvcc per source, started together; sm_90a) and prints ptxas' resource
      use; fails if ptxas reports spill stores or loads in a production
-     instance (K1/K1m/K2 fixed and online max, D, D's dK|dV and dQ
-     backward kernels) or in P4, which has its own Hopper design;
+     instance (K1/K1m/K2 fixed and online max, D on both routes: the
+     mainloop and the short-key kernel, D's dK|dV and dQ backward kernels)
+     or in P4, which has its own Hopper design;
   2. kernels vs their plain torch versions on the card, max abs error
      <= 1e-2 in each case, each case timed against the plain version and
      beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
@@ -28,12 +29,19 @@ result line):
      HunyuanVideo Turbo stage-0 shape (142 blocks, tsb 140, seqlen 18,076,
      text_amp 0.431) with an empty row, both epilogues; (c) the Wan Turbo
      stage-0 shape (B=2, 141 blocks, first_frame_blocks 6, seqlen
-     18,018). Dense: Wan self-attention, Wan cross-attention over 512
-     keys, HunyuanVideo's joint dense shape with kv_len, a ragged small
-     case with an empty sample (which must be all zeros), and Wan2.1-14B's
-     two cross-attentions at 40 heads over 32,768 query rows: the 257 CLIP
+     18,018). Dense (each record names the route it took, from the
+     counters, and fails if that is not the one its key count selects):
+     Wan self-attention and HunyuanVideo's joint dense shape with kv_len
+     on the mainloop; on the short-key kernel (Skv <= 512) Wan
+     cross-attention over 512 keys, a ragged small case with an empty
+     sample (which must be all zeros), and Wan2.1-14B's two
+     cross-attentions at 40 heads over 32,768 query rows: the 257 CLIP
      image keys (a ragged last key tile) and the 512 text keys, each with
-     SDPA beside it. K1 also at Wan2.1-14B's self-attention shape (B=2, 40
+     SDPA beside it; then the model's own calls, attention_bshd on [B, S,
+     H, D] over 32,760 rows: Wan-1.3B's cross-attention and
+     Wan2.1-I2V-14B's text + image pair on one q, summed, with SDPA on the
+     same layout, each call running the short-key kernel once a pair (and
+     one add), no copy. K1 also at Wan2.1-14B's self-attention shape (B=2, 40
      heads, 256 blocks, joint q8 with first-frame forcing), with flex.
      D's backward (the dK|dV kernel, then the dQ kernel, from the forward
      kernel's output and base-2 statistics) against the plain backward
@@ -60,7 +68,8 @@ result line):
      step count is the smallest from 6 whose host schedule holds a dense
      warm-up, a carved and a TeaCache-skipped step. Latents (16, 21, 60,
      104) finite and non-zero; block-sparse launches = 30 x carved steps,
-     dense launches = 30 x dense steps + 30 x computed steps;
+     dense launches = 30 x dense steps + 30 x computed steps, the latter
+     (the cross-attention over 512 text keys) on the short-key kernel;
   4b. main path, the same model with the 1.3b-turbo preset (joint q8) at
      832x480x81f: the smallest step count from 6 and switch step whose
      host schedule holds a dense step, a carved step in each stage and,
@@ -85,8 +94,9 @@ result line):
      holds a dense, a carved and a skipped step. Latents finite and
      non-zero; block-sparse launches = 40 x carved steps, dense launches =
      40 x dense steps + 80 x computed steps (text and image
-     cross-attention). Each full-width model is freed before the next is
-     built, and each phase prints its peak memory;
+     cross-attention, the 80 on the short-key kernel). Each full-width
+     model is freed before the next is built, and each phase prints its
+     peak memory;
   5. end to end, kernels vs plain attention (both dispatch points
      patched): HunyuanVideo at full width cut to 1 double + 1 single
      block, carved and dense (carve=None, the dense arm), and at the
@@ -297,6 +307,23 @@ DESIGN = ("sm_90a mainloop csrc/attn_sm90.cuh: a TMA producer warp "
           "(3-D tensor maps, 128-byte swizzle), two wgmma consumer "
           "warpgroups of 64 query rows (setmaxnreg 232), S = QK^T "
           "m64n128k16 from shared memory, O += PV with P from registers")
+# the design of D's short-key kernel (the kernels line's `short_design`)
+SHORT_DESIGN = ("sm_90a csrc/dense_attn_short.cu on the attn_sm90.cuh "
+                "primitives (not its mainloop), for Skv <= 512: persistent "
+                "blocks, one per SM, each walking a contiguous head-major run "
+                "of (batch*head, 128-row query tile) units; K of all the "
+                "head's keys resident in shared memory (loaded once per head "
+                "under one barrier), V resident too up to 384 keys, else "
+                "through a 2-stage ring; P V of the last key tile over its "
+                "16-key chunks only (1, 2, 4 or 8, a template parameter); a "
+                "TMA producer warp (setmaxnreg 24), two wgmma consumer "
+                "warpgroups of 64 rows (setmaxnreg 240) copying Q into "
+                "registers as it lands, the last P V of a tile issued with S "
+                "of the next tile's first key tile, the warpgroups taking "
+                "turns on two named barriers (ping-pong); exact online "
+                "softmax, kv_len masking by select; 4-D tensor maps over the "
+                "caller's strides, so [B, S, H, D] is read and written "
+                "without a copy")
 # the design of P4 (its kernels-line `design`)
 P4_DESIGN = ("sm_90a csrc/cross_attn_resident.cu on the attn_sm90.cuh "
              "primitives (not its mainloop): K of all 512 keys (128 KB) "
@@ -374,6 +401,7 @@ def phase_toolchain():
     # (source, build function, production): spills fail the production ones
     sources = [(m.KERNEL_SOURCE, m.build_kernel, m in (bsa, fa, xr))
                for m in (bsa, fa, ap, bp, xr)]
+    sources.append((fa.SHORT_KERNEL_SOURCE, fa.build_short_kernel, True))
     sources.append((fa.BWD_KERNEL_SOURCE, fa.build_bwd_kernel, True))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda e: e[1](), sources))
@@ -477,13 +505,20 @@ def _case(name, q, k, v, idx, cnt, seqlens, q_rows, tsb, amp, fixed_max,
     return rec, out
 
 
-def _dense_case(name, q, k, v, kv_len=None):
+def _dense_case(name, q, k, v, kv_len=None, route=None):
+    """D vs its plain version on one case, timed with its bound and SDPA;
+    the record's ``route`` is the forward kernel the call launched (from
+    the counters), which must be ``route`` and ``dense_route(Skv)``."""
     import torch
     from jenga_tpu_torch.ops.flash_attention import (dense_attention,
-                                                     dense_attention_plain)
+                                                     dense_attention_plain,
+                                                     dense_route)
     from jenga_tpu_torch.tools.library_baseline import sdpa_flash
+    short0 = dense_attention.short_launches
     out = dense_attention(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
+    took = ("short" if dense_attention.short_launches > short0
+            else "mainloop")
     ref = dense_attention_plain(q.float(), k.float(), v.float(),
                                 kv_len=kv_len)
     errs = _errors(name, out, ref)
@@ -492,8 +527,8 @@ def _dense_case(name, q, k, v, kv_len=None):
     skv = k.shape[2]
     keys = b * skv if kv_len is None else sum(
         min(max(int(x), 0), skv) for x in kv_len.tolist())
-    rec = {"kernel": "dense_attn", "case": name, "q": list(q.shape),
-           "kv": list(k.shape),
+    rec = {"kernel": "dense_attn", "case": name, "route": took,
+           "q": list(q.shape), "kv": list(k.shape),
            "kv_len": None if kv_len is None else kv_len.tolist(),
            **errs}
     rec["ms"] = time_ms(lambda: dense_attention(q, k, v, kv_len=kv_len), 10)
@@ -507,7 +542,87 @@ def _dense_case(name, q, k, v, kv_len=None):
                          time_ms(lambda: sdpa_flash(q, k, v), 10))
     print(f"   {json.dumps(rec)}", flush=True)
     _check(name, rec)
+    if took != dense_route(skv) or (route is not None and took != route):
+        fail(f"{name}: D took the {took} route, expected {route} "
+             f"(dense_route: {dense_route(skv)})")
     return rec, out
+
+
+def _device_kernels(fn):
+    """Names of the CUDA kernels one call of fn() runs (torch.profiler)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _bshd_case(name, q, pairs):
+    """attention_bshd as Wan's cross-attention calls it: q [B, S, H, D] from
+    the model's projection, each (k, v) [B, Skv, H, D], the outputs summed
+    (the I2V block adds the image keys' attention to the text keys') and
+    reshaped to [B, S, H * D]. Against the plain version in f32, timed with
+    its bound (q, each k and v read once, the sum written once) and SDPA
+    (flash) on the same operands and layout; one call must run the
+    short-key kernel once a pair and an add between, no copy, and the
+    single attention's output must be contiguous [B, S, H, D] (the
+    model's reshape a view)."""
+    import torch
+    from jenga_tpu_torch.ops.flash_attention import (attention_bshd,
+                                                     dense_attention,
+                                                     dense_attention_plain)
+    from jenga_tpu_torch.tools.library_baseline import sdpa_flash
+    b, s, h, d = q.shape
+
+    def call(attn=attention_bshd):
+        out = attn(q, *pairs[0])
+        for k, v in pairs[1:]:
+            out = out + attn(q, k, v)
+        return out.reshape(b, s, h * d)
+
+    def bhsd(fn, *xs):
+        return fn(*(x.transpose(1, 2) for x in xs)).transpose(1, 2)
+    short0 = dense_attention.short_launches
+    got = call()
+    torch.cuda.synchronize()
+    shorts = dense_attention.short_launches - short0
+    ref = sum(bhsd(dense_attention_plain, q.float(), k.float(), v.float())
+              for k, v in pairs).reshape(b, s, h * d)
+    rec = {"kernel": "dense_attn", "case": name, "route": "short",
+           "call": "attention_bshd", "q": list(q.shape),
+           "kv": [list(k.shape) for k, _ in pairs],
+           **_errors(name, got, ref)}
+    del ref, got
+    kernels = _device_kernels(call)
+    rec["device_kernels"] = len(kernels)
+    rec["short_kernels"] = sum("dense_kernel_short" in n for n in kernels)
+    single = attention_bshd(q, *pairs[0])
+    rec["output_contiguous"] = single.is_contiguous()
+    del single
+    rec["ms"] = time_ms(call, 10)
+    rec["plain_ms"] = time_ms(lambda: call(
+        lambda *xs: bhsd(dense_attention_plain, *xs)), 2)
+    flop = sum(4.0 * b * h * s * k.shape[1] * d for k, _ in pairs)
+    nbytes = 2 * (2 * q.numel() + sum(k.numel() + v.numel()
+                                      for k, v in pairs))
+    rec["tflops"] = flop / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_ms"], rec["bound_by"] = bound(flop, nbytes)
+    rec["library_ms"] = time_ms(lambda: call(
+        lambda *xs: bhsd(sdpa_flash, *xs)), 10)
+    print(f"   {json.dumps(rec)}", flush=True)
+    _check(name, rec)
+    if shorts != len(pairs) or rec["short_kernels"] != len(pairs) or \
+            rec["device_kernels"] != 2 * len(pairs) - 1 or \
+            not rec["output_contiguous"]:
+        fail(f"{name}: attention_bshd ran {rec['device_kernels']} kernels, "
+             f"{rec['short_kernels']} of them the short-key kernel "
+             f"({shorts} counted), output contiguous "
+             f"{rec['output_contiguous']}: expected {len(pairs)} short-key "
+             f"launches, an add between, no copy")
+    return rec
 
 
 def _sdpa_bwd_ms(q, k, v, do):
@@ -766,24 +881,25 @@ def phase_kernel_cases():
 
     # dense: (a) Wan self-attention, (b) Wan cross-attention over 512 keys,
     # (c) HunyuanVideo's joint dense shape with kv_len, (d) ragged small
+    # (a, c: over 512 keys, the mainloop; b, d-f: the short-key kernel)
     dense = []
     q, k, v = _qkv(gen, 2, 12, 32768)
-    rec, _ = _dense_case("a_wan_self", q, k, v)
+    rec, _ = _dense_case("a_wan_self", q, k, v, route="mainloop")
     dense.append(rec)
     del k, v
     _, k, v = _qkv(gen, 2, 12, 512)
-    rec, _ = _dense_case("b_wan_cross", q, k, v)
+    rec, _ = _dense_case("b_wan_cross", q, k, v, route="short")
     dense.append(rec)
     del q, k, v
     s = 32656
     q, k, v = _qkv(gen, 1, 24, s)
     kl = torch.tensor([s - 40], dtype=torch.int32, device="cuda")
-    rec, _ = _dense_case("c_hy_joint_dense", q, k, v, kl)
+    rec, _ = _dense_case("c_hy_joint_dense", q, k, v, kl, route="mainloop")
     dense.append(rec)
     del q, k, v
     q, k, v = _qkv(gen, 2, 12, 1000, skv=300)
     kl = torch.tensor([0, 137], dtype=torch.int32, device="cuda")
-    rec, out = _dense_case("d_ragged_small", q, k, v, kl)
+    rec, out = _dense_case("d_ragged_small", q, k, v, kl, route="short")
     dense.append(rec)
     if out[0].any():
         fail("d_ragged_small: the kv_len=0 sample is not all zeros")
@@ -795,9 +911,26 @@ def phase_kernel_cases():
     for name, skv in (("e_wan14b_image_cross", 257),
                       ("f_wan14b_text_cross", 512)):
         _, k, v = _qkv(gen, 2, 40, skv)
-        extra[name], _ = _dense_case(name, q, k, v)
+        extra[name], _ = _dense_case(name, q, k, v, route="short")
         dense.append(extra[name])
         del k, v
+    del q
+    # the model's calls, timed as it makes them (attention_bshd on its
+    # [B, S, H, D] projections over Wan's 32,760 rows): (g) Wan-1.3B's
+    # cross-attention over the 512 text keys, (h) Wan2.1-I2V-14B's text
+    # (512) and image (257) cross-attention on one q, summed
+    def bshd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    q = bshd(2, 32760, 12, 128)
+    extra["g_bshd_wan13_cross"] = _bshd_case(
+        "g_bshd_wan13_cross", q, [(bshd(2, 512, 12, 128),
+                                   bshd(2, 512, 12, 128))])
+    q = bshd(2, 32760, 40, 128)
+    extra["h_bshd_wan14_i2v_cross"] = _bshd_case(
+        "h_bshd_wan14_i2v_cross", q,
+        [(bshd(2, n, 40, 128), bshd(2, n, 40, 128)) for n in (512, 257)])
+    dense += [extra["g_bshd_wan13_cross"], extra["h_bshd_wan14_i2v_cross"]]
     del q
     # D's backward (dK|dV and dQ kernels): (a) Wan self-attention, (b) Wan
     # 1.3B cross-attention over 512 keys, (c) Wan2.1-14B's image
@@ -864,9 +997,9 @@ NOT_SERVING = dict.fromkeys(PROBES + BWD, 0)
 class _Launches:
     """The kernels' launch counts over one path's run: set to 0 on entry,
     read on exit. The block-sparse wrapper counts its all-member launches
-    (K1/K2) and its membership-mode launches (K1m) apart, the probe
-    wrapper its P1 and P2 launches, D's backward its dK|dV and dQ
-    launches."""
+    (K1/K2) and its membership-mode launches (K1m) apart, D its launches
+    and, among them, those of the short-key kernel, the probe wrapper its
+    P1 and P2 launches, D's backward its dK|dV and dQ launches."""
 
     def __enter__(self):
         from jenga_tpu_torch.ops.attention_probe import attention_probe
@@ -882,6 +1015,7 @@ class _Launches:
             "block_sparse_attn_members": (block_sparse_attention,
                                           "member_launches"),
             "dense_attn": (dense_attention, "launches"),
+            "dense_attn_short": (dense_attention, "short_launches"),
             "dense_attn_bwd_dkv": (dense_attention_backward, "dkv_launches"),
             "dense_attn_bwd_dq": (dense_attention_backward, "dq_launches"),
             "attn_probe_split": (attention_probe, "split_launches"),
@@ -1051,7 +1185,7 @@ def phase_hy_turbo(sampler, txt, mask, txt2):
     expect = {"block_sparse_attn": 0,
               "block_sparse_attn_members":
                   computed * (cfg.double_blocks + cfg.single_blocks),
-              "dense_attn": 0, **NOT_SERVING}
+              "dense_attn": 0, "dense_attn_short": 0, **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x 60 blocks, all in the membership mode)")
@@ -1087,9 +1221,12 @@ def _wan_run(sampler, opts, kinds, ctx, null):
           f"block-sparse list density (mean over launches): {density}")
     _check_latents(lat, (16, 21, 60, 104))
     n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
+    # D per computed step: the cross-attention of every layer (512 text
+    # keys: the short-key kernel); a dense step adds its self-attention
     expect = {"block_sparse_attn": cfg.num_layers * n_carved,
               "block_sparse_attn_members": 0,
               "dense_attn": cfg.num_layers * (2 * n_dense + n_carved),
+              "dense_attn_short": cfg.num_layers * (n_dense + n_carved),
               **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
@@ -1217,7 +1354,7 @@ def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape,
     blocks = cfg.double_blocks + cfg.single_blocks
     expect = {"block_sparse_attn": computed * blocks,
               "block_sparse_attn_members": 0, "dense_attn": 0,
-              **NOT_SERVING}
+              "dense_attn_short": 0, **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} computed "
              f"steps x {blocks} blocks)")
@@ -1355,11 +1492,14 @@ def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape,
     n_dense, n_carved = kinds.count("dense"), kinds.count("carved")
     layers = cfg.num_layers
     # D per computed step: the text and the image cross-attention of
-    # every layer; a dense step adds its self-attention
+    # every layer (512 and 257 keys: the short-key kernel); a dense step
+    # adds its self-attention
     expect = {"block_sparse_attn": layers * n_carved,
               "block_sparse_attn_members": 0,
               "dense_attn": layers * n_dense
-              + 2 * layers * (n_dense + n_carved), **NOT_SERVING}
+              + 2 * layers * (n_dense + n_carved),
+              "dense_attn_short": 2 * layers * (n_dense + n_carved),
+              **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
@@ -1664,12 +1804,15 @@ from jenga_tpu_torch.ops.block_sparse_attention import block_sparse_attention
 from jenga_tpu_torch.ops.flash_attention import dense_attention
 cli.main(sys.argv[1:])
 print(json.dumps({"block_sparse_attn": block_sparse_attention.launches,
-                  "dense_attn": dense_attention.launches}))
+                  "dense_attn": dense_attention.launches,
+                  "dense_attn_short": dense_attention.short_launches}))
 """
 CLI_TINY = (("hyvideo-t2v", ("block_sparse_attn",)),
-            ("wan-t2v", ("block_sparse_attn", "dense_attn")),
+            ("wan-t2v", ("block_sparse_attn", "dense_attn",
+                         "dense_attn_short")),
             ("hyvideo-i2v", ("block_sparse_attn",)),
-            ("wan-i2v", ("block_sparse_attn", "dense_attn")))
+            ("wan-i2v", ("block_sparse_attn", "dense_attn",
+                         "dense_attn_short")))
 
 
 def phase_cli_tiny():
@@ -1778,7 +1921,7 @@ def phase_hy_fp8(ref_weights, bf16_peak):
     layers_n = cfg.double_blocks + cfg.single_blocks
     expect = {"block_sparse_attn": computed * layers_n,
               "block_sparse_attn_members": 0, "dense_attn": 0,
-              **NOT_SERVING}
+              "dense_attn_short": 0, **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x {layers_n} blocks)")
@@ -1902,7 +2045,9 @@ def phase_fidelity():
     n_carved = sum(p.count("carved") for p in plans.values())
     expect = {"block_sparse_attn": layers * n_carved,
               "block_sparse_attn_members": 0,
-              "dense_attn": layers * (2 * n_dense + n_carved), **NOT_SERVING}
+              "dense_attn": layers * (2 * n_dense + n_carved),
+              "dense_attn_short": layers * (n_dense + n_carved),
+              **NOT_SERVING}
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
@@ -3054,7 +3199,8 @@ def phase_checkpoints():
 def _counts(**nonzero):
     """Every counter of ``_Launches`` at 0 but the ones given."""
     return {"block_sparse_attn": 0, "block_sparse_attn_members": 0,
-            "dense_attn": 0, **NOT_SERVING, **nonzero}
+            "dense_attn": 0, "dense_attn_short": 0, **NOT_SERVING,
+            **nonzero}
 
 
 def _lora_grad_norm(lora) -> float:
@@ -3145,15 +3291,18 @@ def phase_train_wan():
     runs = {}
     # with remat each block's forward runs twice: D on self and cross
     # attention (dense) or K1 on self and D on cross (carved), each
-    # launched again in the recompute; the backward launches dkv and dq
-    # once per dense attention
+    # launched again in the recompute (the cross-attention's 512 keys on
+    # the short-key kernel); the backward launches dkv and dq once per
+    # dense attention
     for label, cv, n, expect in (
             ("dense", None, 3, _counts(
-                dense_attn=4 * layers, dense_attn_bwd_dkv=2 * layers,
+                dense_attn=4 * layers, dense_attn_short=2 * layers,
+                dense_attn_bwd_dkv=2 * layers,
                 dense_attn_bwd_dq=2 * layers)),
             ("carved", carve, 2, _counts(
                 block_sparse_attn=2 * layers, dense_attn=2 * layers,
-                dense_attn_bwd_dkv=layers, dense_attn_bwd_dq=layers))):
+                dense_attn_short=2 * layers, dense_attn_bwd_dkv=layers,
+                dense_attn_bwd_dq=layers))):
         def apply(p, xt, t, b, cv=cv):
             return functional_call(model, p, (xt, t, b["context"]),
                                    {"carve": cv, "remat": True})
@@ -3400,7 +3549,8 @@ def _sp_wan(mesh):
         return sampler.model(*args, mesh=mesh)
     return _sp_step("17b Wan2.1-T2V-1.3B Base carved CFG step, joint q8",
                     fwd, mesh, layers,
-                    _counts(block_sparse_attn=layers, dense_attn=layers))
+                    _counts(block_sparse_attn=layers, dense_attn=layers,
+                            dense_attn_short=layers))
 
 
 SP_GLOO_RANKS = 2
@@ -3475,7 +3625,8 @@ def _sp_gloo(want):
         fail(f"17e: rel L2 {rec['rel_err']} > {SP_GLOO_REL_TOL}")
     for r in ranks:
         if r["launches"] != _counts(block_sparse_attn=layers,
-                                    dense_attn=layers):
+                                    dense_attn=layers,
+                                    dense_attn_short=layers):
             fail(f"17e: rank launches {r['launches']}: expected K1 and D "
                  f"{layers} times each")
     return rec
@@ -3505,9 +3656,10 @@ def _sp_ring(mesh):
         with _Launches() as run:
             out = ring()
             torch.cuda.synchronize()
-        if run.counts != _counts(dense_attn=2):
+        if run.counts != _counts(dense_attn=2, dense_attn_short=1):
             fail(f"17c ring launches {run.counts}: expected D twice (the "
-                 f"image chunk, the joint chunk)")
+                 f"image chunk, the joint chunk; the joint chunk's 256 "
+                 f"keys on the short-key kernel)")
 
         def bhsd(*xs):
             return (x.transpose(1, 2) for x in xs)
@@ -3627,6 +3779,11 @@ def main():
         return {path: counts[name] for path, counts in runs.items()}
 
     wan_self, wan_cross = dense[0], dense[1]
+    image_cross = extra["e_wan14b_image_cross"]
+    short = [r for r in dense if r["route"] == "short"]
+    short_cases = {r["case"]: {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in short}
     member_main = member[0]
     k2_main = next(r for r in recs if r["case"] == "q1_main_shape")
     kernels = {"kernels": [{
@@ -3708,6 +3865,30 @@ def main():
         "cross14b_library_ms": extra["f_wan14b_text_cross"]["library_ms"],
         "e2e_rel_err": max(rel["hy_dense"], rel["wan_dense"],
                            rel["hy_i2v_tr_dense"], rel["wan_i2v_dense"]),
+        "routes": {r["case"]: r["route"] for r in dense},
+        "short_design": SHORT_DESIGN,
+        "short_source": "jenga_tpu_torch/csrc/dense_attn_short.cu",
+        "short_launches_by_path": launches("dense_attn_short"),
+        "short_cases": short_cases,
+    }, {
+        "name": "dense_attn_short",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/dense_attn_short.cu",
+        "replaces": "jenga_tpu/ops/flash_attention.py:73",
+        "of": "dense_attn (D) for Skv <= 512",
+        "launches": sum(launches("dense_attn_short").values()),
+        "launches_by_path": launches("dense_attn_short"),
+        "max_abs_err": max(r["max_abs_err"] for r in short),
+        "rel_err": max(r["rel_err"] for r in short),
+        "ms": image_cross["ms"],
+        "ms_of": f"Wan-14B image cross-attention {image_cross['q']} x "
+                 f"{image_cross['kv'][2]} keys",
+        "plain_ms": image_cross["plain_ms"],
+        "bound_ms": image_cross["bound_ms"],
+        "bound_by": image_cross["bound_by"],
+        "library_ms": image_cross["library_ms"],
+        "design": SHORT_DESIGN,
+        "cases": short_cases,
     }] + _bwd_entries(extra["bwd"], runs) + _probe_entries(probes, runs)}
     vae = {name: {k: v for k, v in rec.items()
                   if k not in ("launches", "step_s", "schedule")}

@@ -1,28 +1,35 @@
 """Dense attention with per-sample ``kv_len``: the CUDA kernels' wrappers
-(forward D, backward dK|dV and dQ), their plain torch versions, the
-autograd Function that joins them, and the launch counters.
+(forward D on two routes, backward dK|dV and dQ), their plain torch
+versions, the autograd Function that joins them, and the launch counters.
 
 Port of ``jenga_tpu/ops/flash_attention.py``'s semantics: keys at
 positions >= ``kv_len[b]`` are masked out, and a row whose every key is
-masked gives zeros, not NaN (``_masked_softmax``). The forward kernel
-(``csrc/dense_attn.cu``) replaces the stock Pallas TPU flash kernel that
-``dense_attention`` calls on the TPU; it serves Wan's cross-attention,
-Wan's dense warm-up steps and HunyuanVideo's dense arm. Under autograd
-(``torch.is_grad_enabled()`` and an operand that requires grad) the call
-goes through ``_DenseAttention``: the forward kernel also stores each
-row's base-2 log-sum-exp, and the backward computes ``di = rowsum(dO *
-O)`` in torch (as JAX does in jnp outside its kernels), then launches the
-dK|dV kernel and the dQ kernel (``csrc/dense_attn_bwd.cu``), which
-replace the stock kernel's ``_flash_attention_bwd_dkv`` and
+masked gives zeros, not NaN (``_masked_softmax``). The forward kernels
+replace the stock Pallas TPU flash kernel that ``dense_attention`` calls
+on the TPU. Which one a CUDA call launches follows from its key count
+alone (``dense_route``): up to ``SHORT_KEYS`` keys the short-key kernel
+(``csrc/dense_attn_short.cu``: persistent blocks with every key
+resident, reading and writing the caller's strides, so
+``attention_bshd`` takes the model's [B, S, H, D] layout without a
+copy), over it the mainloop instance (``csrc/dense_attn.cu``, on
+contiguous [B, H, S, D] copies). They serve Wan's cross-attention (short)
+and Wan's dense warm-up steps and HunyuanVideo's dense arm (mainloop).
+Under autograd (``torch.is_grad_enabled()`` and an operand that requires
+grad) the call goes through ``_DenseAttention``: the forward kernel also
+stores each row's base-2 log-sum-exp, and the backward computes ``di =
+rowsum(dO * O)`` in torch (as JAX does in jnp outside its kernels), then
+launches the dK|dV kernel and the dQ kernel (``csrc/dense_attn_bwd.cu``),
+which replace the stock kernel's ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``. Each source is built at first use by
 ``cuda_build.build_library``.
 
 Every entry point launches its kernel for CUDA tensors (bf16, head dim
 128, non-causal, or it raises) and uses its plain version only for CPU
-tensors; there is no fallback between the two. Counters:
-``dense_attention.launches`` (every forward launch, with or without the
-statistics), ``dense_attention_backward.dkv_launches`` and
-``.dq_launches``.
+tensors; there is no fallback between the two, and none between the
+routes. Counters: ``dense_attention.launches`` (every forward launch, on
+either route, with or without the statistics),
+``dense_attention.short_launches`` (those of the short-key route),
+``dense_attention_backward.dkv_launches`` and ``.dq_launches``.
 """
 
 from __future__ import annotations
@@ -37,14 +44,17 @@ from .cuda_build import CSRC, build_library
 __all__ = ["dense_attention", "dense_attention_plain",
            "dense_attention_forward", "dense_attention_backward",
            "dense_attention_backward_plain", "attention_bshd",
-           "build_kernel", "build_bwd_kernel", "KERNEL_SOURCE",
-           "BWD_KERNEL_SOURCE"]
+           "dense_route", "build_kernel", "build_short_kernel",
+           "bind_short_kernel", "build_bwd_kernel", "KERNEL_SOURCE",
+           "SHORT_KERNEL_SOURCE", "BWD_KERNEL_SOURCE", "SHORT_KEYS"]
 
 _HEAD_DIM = 128
 _BLOCK = 128        # query rows per forward thread block (the lse padding)
 _SLAB = 1 << 28     # logits elements per query chunk of the plain versions
 _LOG2E = 1.4426950408889634
+SHORT_KEYS = 512    # the most keys the short-key kernel holds resident
 KERNEL_SOURCE = CSRC / "dense_attn.cu"
+SHORT_KERNEL_SOURCE = CSRC / "dense_attn_short.cu"
 BWD_KERNEL_SOURCE = CSRC / "dense_attn_bwd.cu"
 
 
@@ -57,6 +67,23 @@ def build_kernel() -> ctypes.CDLL:
     lib.dense_attn_forward.restype = ctypes.c_int
     lib.dense_attn_error_string.argtypes = [ctypes.c_int]
     lib.dense_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def build_short_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load the short-key forward kernel
+    library."""
+    return bind_short_kernel(build_library(SHORT_KERNEL_SOURCE))
+
+
+def bind_short_kernel(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the short-key kernel library's C interface on ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dense_attn_short_forward.argtypes = [p] * 6 + [i, i, i, i, p, f, p]
+    lib.dense_attn_short_forward.restype = ctypes.c_int
+    lib.dense_attn_short_error_string.argtypes = [ctypes.c_int]
+    lib.dense_attn_short_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -215,34 +242,86 @@ def _padded_rows(x, sq_pad: int, fill: float):
     return out
 
 
+def dense_route(skv: int) -> str:
+    """The forward kernel a CUDA call over ``skv`` keys launches: "short"
+    (``csrc/dense_attn_short.cu``) up to ``SHORT_KEYS`` keys, "mainloop"
+    (``csrc/dense_attn.cu``) over it. A function of the shape alone."""
+    return "short" if skv <= SHORT_KEYS else "mainloop"
+
+
+def _map_operand(x):
+    """``x`` itself where a 4-D tensor map can address it (the last dim
+    contiguous, every other stride of a dim longer than 1 a positive
+    multiple of 8 elements, the pointer 16-byte aligned), else a
+    contiguous copy."""
+    ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+        st > 0 and st % 8 == 0
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n > 1)
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
+def _map_strides(x) -> list[int]:
+    """(row, head, sample) element strides of [B, H, S, D] ``x``; a dim of
+    length 1 is never stepped, and gets 8 (a map wants 16-byte strides)."""
+    return [st if n > 1 else 8 for n, st in zip(
+        (x.shape[2], x.shape[1], x.shape[0]),
+        (x.stride(2), x.stride(1), x.stride(0)))]
+
+
+def _launch(fn, err_fn, *args):
+    """Call a kernel's entry point; raise with its CUDA error string."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError("dense_attention launch failed: "
+                           + err_fn(err).decode())
+
+
 def dense_attention_forward(q, k, v, *, sm_scale: float | None = None,
                             kv_len=None, with_lse: bool = False):
     """(out, lse): dense non-causal attention over [B, H, S, D] in q's
     dtype, and with ``with_lse`` the rows' base-2 log-sum-exp [B, H, Sq]
     f32 (+inf for a row with no valid key), else None. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel of
+    ``dense_route(Skv)`` or raise. The short route reads q, k and v
+    through their strides and gives ``out`` q's layout (a [B, S, H, D]
+    tensor seen as [B, H, S, D] stays one); the mainloop takes contiguous
+    copies."""
     b, h, sq, d = q.shape
+    skv = k.shape[2]
     if sm_scale is None:
         sm_scale = d ** -0.5
     if not q.is_cuda:
         return _plain_forward(q, k, v, sm_scale, kv_len, with_lse)
     _check_operands("dense_attention", q, k, v)
-    q, k, v = _contiguous("dense_attention", q, k, v)
+    short = dense_route(skv) == "short"
+    if short:
+        q, k, v = (_map_operand(x) for x in (q, k, v))
+    else:
+        q, k, v = _contiguous("dense_attention", q, k, v)
     kl = _kv_len_int32(kv_len, b, q.device)
+    kl_ptr = None if kl is None else kl.data_ptr()
     nqb = -(-sq // _BLOCK)
     lse = (torch.full((b, h, nqb * _BLOCK), float("inf"),
                       dtype=torch.float32, device=q.device)
            if with_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     out = torch.empty_like(q)
-    lib = build_kernel()
-    err = lib.dense_attn_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if kl is None else kl.data_ptr(),
-        None if lse is None else lse.data_ptr(), b * h, h, sq, k.shape[2],
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("dense_attention launch failed: "
-                           + lib.dense_attn_error_string(err).decode())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if short:
+        lib = build_short_kernel()
+        strides = (ctypes.c_longlong * 12)(
+            *(st for x in (q, k, v, out) for st in _map_strides(x)))
+        _launch(lib.dense_attn_short_forward,
+                lib.dense_attn_short_error_string, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), kl_ptr, lse_ptr,
+                b, h, sq, skv, strides, float(sm_scale), stream)
+        dense_attention.short_launches += 1
+    else:
+        lib = build_kernel()
+        _launch(lib.dense_attn_forward, lib.dense_attn_error_string,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kl_ptr, lse_ptr, b * h, h, sq, skv,
+                float(sm_scale), stream)
     dense_attention.launches += 1
     return out, None if lse is None else lse[..., :sq]
 
@@ -333,10 +412,14 @@ def dense_attention(q, k, v, *, sm_scale: float | None = None,
 
 
 dense_attention.launches = 0
+dense_attention.short_launches = 0
 
 
 def attention_bshd(q, k, v, **kwargs):
-    """Dense attention over the model-side [B, S, H, D] layout."""
+    """Dense attention over the model-side [B, S, H, D] layout. The
+    transposes are views: on the short route the kernel reads q, k and v
+    in this layout and writes the output in it, so the result is a
+    contiguous [B, S, H, D] tensor and no copy is made."""
     out = dense_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), **kwargs)
     return out.transpose(1, 2)

@@ -46,6 +46,9 @@ For each step:
     matrix products (GEMM), and everything else (planner, norms, RoPE,
     modulation, copies), with the device's idle share of the profiled
     run's wall time,
+  * the launches of the block-sparse kernel and of D, and among D's those
+    of its short-key kernel (Wan's cross-attention: 30 a 1.3B trunk call,
+    80 a 14B I2V one),
   * the peak device memory.
 
 Prints one JSON line per step (and writes them to --out).
@@ -110,7 +113,8 @@ def _profile(trunk, dev, reps: int) -> dict:
     end.record()
     end.synchronize()
     trunk_ms = start.elapsed_time(end) / reps
-    launches0 = (block_sparse_attention.launches, dense_attention.launches)
+    launches0 = (block_sparse_attention.launches, dense_attention.launches,
+                 dense_attention.short_launches)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -127,6 +131,8 @@ def _profile(trunk, dev, reps: int) -> dict:
         "block_sparse_launches": block_sparse_attention.launches
         - launches0[0],
         "dense_launches": dense_attention.launches - launches0[1],
+        "dense_short_launches": dense_attention.short_launches
+        - launches0[2],
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
     }
 

@@ -6,7 +6,8 @@ checkout's kernels, then runs its ``phase_kernel_cases`` with the
 checkout's own ``time_ms`` replaced by this tree's (``_common.timed``:
 CUDA events over a window of at least 50 ms), and the flex_attention
 yardstick switched off where the checkout has one. The table gives each
-case's ms in the four runs and B's mean against A's.
+case's ms in the four runs and B's mean against A's, then the cases only
+B has with B's two times.
 
     python -m jenga_tpu_torch.tools.kernel_cases_ab --a checkout/parent \\
         --b .
@@ -69,14 +70,17 @@ def _one(root: str, timeout: int):
 
 
 def run(a: str, b: str, *, timeout: int = 900):
-    """Returns {"order": [...], "cases": {key: [ms per run]}} for the runs
-    A, B, B, A over the cases both checkouts have."""
+    """Returns {"order": [...], "cases": {key: [ms per run]}, "b_only":
+    {key: [ms of B's two runs]}} for the runs A, B, B, A: the cases both
+    checkouts have, and those only B has."""
     resolve_device("cuda")
     order = [("A", a), ("B", b), ("B", b), ("A", a)]
     runs = [_one(root, timeout) for _, root in order]
     common = [k for k in runs[1] if all(k in r for r in runs)]
+    b_only = [k for k in runs[1] if k not in runs[0] and k in runs[2]]
     return {"order": [name for name, _ in order],
-            "cases": {k: [r[k] for r in runs] for k in common}}
+            "cases": {k: [r[k] for r in runs] for k in common},
+            "b_only": {k: [runs[1][k], runs[2][k]] for k in b_only}}
 
 
 def print_table(res):
@@ -87,6 +91,10 @@ def print_table(res):
         cells = " ".join(f"{x:9.4f}" for x in ms)
         print(f"{' '.join(str(x) for x in key):60s} {cells}  B/A "
               f"{b / a - 1:+.2%}", flush=True)
+    for key, ms in res.get("b_only", {}).items():
+        cells = " ".join(f"{x:9.4f}" for x in ms)
+        print(f"{' '.join(str(x) for x in key):60s} B only: {cells}",
+              flush=True)
 
 
 def main():

@@ -12,6 +12,8 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -q tests/test_torch_kernel_gpu.py
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -28,8 +30,9 @@ from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
 from jenga_tpu_torch.ops.cross_attention_resident import (
     cross_attention_resident, cross_attention_resident_plain)
+from jenga_tpu_torch.ops import flash_attention
 from jenga_tpu_torch.ops.flash_attention import (
-    _plain_forward, dense_attention, dense_attention_backward,
+    _plain_forward, attention_bshd, dense_attention, dense_attention_backward,
     dense_attention_backward_plain, dense_attention_forward,
     dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
@@ -250,6 +253,169 @@ def test_dense_kernel_wan14b_cross_attention_on_card(cuda_device, skv):
     assert (out.float() - ref).abs().max().item() <= 1e-2
 
 
+KERNEL_TOL, KERNEL_REL_TOL = 1e-2, 2e-2    # chip_smoke.py phase 2's bounds
+
+
+def _assert_short_matches_plain(out, q, k, v, kl):
+    """``out`` within phase 2's bounds of the plain version (1e-2 max abs
+    and 2e-2 relative L2: the bf16 rounding of P and of the output, ~2^-9
+    each), finite, and zero for a sample with kv_len 0."""
+    ref = dense_attention_plain(q.float(), k.float(), v.float(), kv_len=kl)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= KERNEL_TOL
+    assert _rel_l2(out, ref) <= KERNEL_REL_TOL
+    for i, n in enumerate([] if kl is None else kl.tolist()):
+        if n <= 0:
+            assert not out[i].any()
+
+
+def _short_call(fn):
+    """fn() on the card; asserts it launched D once, on the short route."""
+    before = (dense_attention.launches, dense_attention.short_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    assert (dense_attention.launches, dense_attention.short_launches) == (
+        before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [1, 16, 17, 128, 129, 257, 384, 512])
+@pytest.mark.parametrize("sq", [1, 127, 1000, 32760])
+def test_dense_short_kernel_matches_plain_on_card(cuda_device, sq, skv):
+    """D's short-key kernel vs its plain version across the narrow last
+    tile's widths (1, 16, 17 keys: one 16-key chunk or two; 129, 257: a
+    tile and a chunk), whole tiles with V resident (128, 384) and streamed
+    (512), a single query row, a ragged last query tile and Wan's 32,760
+    rows; CFG batch 2 over 2 heads."""
+    q, k, v = _dense_inputs(20, cuda_device, 2, sq, skv)
+    out = _short_call(lambda: dense_attention(q, k, v))
+    _assert_short_matches_plain(out, q, k, v, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv,kv_len", [
+    (17, [0, 17]),          # an empty sample beside a full one
+    (129, [1, 129]),        # one key; a tile and one key
+    (257, [0, 1]),          # empty, one key
+    (257, [250, 257]),      # inside the tail tile; the whole tail
+    (384, [260, 383]),      # inside the last resident tile
+    (512, [0, 500]),        # V streamed: empty, inside the last tile
+    (512, [129, 7])])       # V streamed over fewer tiles than resident
+def test_dense_short_kernel_kv_len_on_card(cuda_device, skv, kv_len):
+    """The short-key kernel with per-sample key lengths: a sample with
+    kv_len 0 is all zeros, one key, and lengths inside the last tile,
+    over 3 heads and a ragged query count."""
+    q, k, v = _dense_inputs(21, cuda_device, 2, 1000, skv, h=3)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    out = _short_call(lambda: dense_attention(q, k, v, kv_len=kl))
+    _assert_short_matches_plain(out, q, k, v, kl)
+
+
+def _device_kernels(fn):
+    """Names of the CUDA kernels fn() ran, from torch.profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [257, 512])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd", "sliced", "misaligned"])
+def test_dense_short_kernel_layouts_on_card(cuda_device, layout, skv):
+    """The short-key kernel reads q, k, v through their strides: [B, H, S,
+    D], the model's [B, S, H, D] through ``attention_bshd`` (one kernel
+    on the card, no copy, and a contiguous [B, S, H, D] output, so Wan's
+    reshape is a view), views sliced along the head dim's storage and the
+    rows; an operand whose pointer is not 16-byte aligned is copied."""
+    b, h, sq = 2, 3, 1000
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+    if layout == "bshd":
+        q, k, v = randn(b, sq, h, 128), randn(b, skv, h, 128), randn(
+            b, skv, h, 128)
+        names = _device_kernels(lambda: attention_bshd(q, k, v))
+        assert len(names) == 1 and "dense_kernel_short" in names[0], names
+        out = _short_call(lambda: attention_bshd(q, k, v))
+        assert out.shape == q.shape and out.is_contiguous()
+        _assert_short_matches_plain(out.transpose(1, 2), q.transpose(1, 2),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    None)
+        return
+    if layout == "bhsd":
+        q, k, v = randn(b, h, sq, 128), randn(b, h, skv, 128), randn(
+            b, h, skv, 128)
+    elif layout == "sliced":
+        # rows 256 elements apart, a row offset into each head
+        q = randn(b, h, sq + 5, 256)[:, :, 5:, 64:192]
+        k, v = (randn(b, h, skv + 3, 256)[:, :, 3:, :128] for _ in range(2))
+        assert not q.is_contiguous()
+    else:
+        flat = randn(b * h * sq * 128 + 1)
+        q = flat[1:].view(b, h, sq, 128)
+        assert q.data_ptr() % 16
+        k, v = randn(b, h, skv, 128), randn(b, h, skv, 128)
+    out = _short_call(lambda: dense_attention(q, k, v))
+    _assert_short_matches_plain(out, q, k, v, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv,kv_len", [
+    (1, None), (257, [0, 250]), (512, [500, 1]), (100, [37, 100])])
+def test_dense_short_kernel_statistics_on_card(cuda_device, skv, kv_len):
+    """The short-key kernel's base-2 log-sum-exp (the backward's input)
+    against the plain statistics: within 1e-3 (log2 units; ex2.approx),
+    +inf exactly where a row has no valid key."""
+    q, k, v = _dense_inputs(23, cuda_device, 2, 333, skv)
+    kl = None if kv_len is None else torch.tensor(
+        kv_len, dtype=torch.int32, device=cuda_device)
+    o, lse = _short_call(lambda: dense_attention_forward(
+        q, k, v, kv_len=kl, with_lse=True))
+    _assert_short_matches_plain(o, q, k, v, kl)
+    _, lse_ref = _plain_forward(q, k, v, 128 ** -0.5, kl, True)
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sm_scale", [-0.05, 0.0, 0.3])
+def test_dense_short_kernel_sm_scale_on_card(cuda_device, sm_scale):
+    """A negative scale (Q negated in registers), zero (uniform weights
+    over the valid keys) and a large one, with a ragged tail."""
+    q, k, v = _dense_inputs(24, cuda_device, 2, 500, 257)
+    kl = torch.tensor([257, 100], dtype=torch.int32, device=cuda_device)
+    out = _short_call(lambda: dense_attention(q, k, v, sm_scale=sm_scale,
+                                              kv_len=kl))
+    ref = dense_attention_plain(q.float(), k.float(), v.float(),
+                                sm_scale=sm_scale, kv_len=kl)
+    assert (out.float() - ref).abs().max().item() <= KERNEL_TOL
+    assert _rel_l2(out, ref) <= KERNEL_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [512, 513])
+def test_dense_route_follows_key_count_on_card(cuda_device, skv):
+    """512 keys launch the short-key kernel, 513 the mainloop: the
+    counters show which."""
+    q, k, v = _dense_inputs(25, cuda_device, 1, 300, skv)
+    before = (dense_attention.launches, dense_attention.short_launches)
+    out = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (dense_attention.launches - before[0],
+            dense_attention.short_launches - before[1]) == (
+                1, int(skv <= 512))
+    _assert_short_matches_plain(out, q, k, v, None)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,skv,kv_len", [
     (1, 1024, 1024, None),          # whole tiles
@@ -296,15 +462,18 @@ def test_dense_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv,
 
 
 @pytest.mark.gpu
-def test_dense_attention_autograd_on_card(cuda_device):
+@pytest.mark.parametrize("skv", [200, 600])
+def test_dense_attention_autograd_on_card(cuda_device, skv):
     """``dense_attention`` under autograd launches the forward with its
-    statistics once and each backward kernel once, and its gradients
-    match the plain backward (2e-2 relative L2)."""
+    statistics once (200 keys: the short-key kernel; 600: the mainloop)
+    and each backward kernel once, and its gradients match the plain
+    backward (2e-2 relative L2)."""
     q, k, v = (x.requires_grad_() for x in _dense_inputs(
-        18, cuda_device, 2, 333, 200))
-    kl = torch.tensor([200, 77], dtype=torch.int32, device=cuda_device)
+        18, cuda_device, 2, 333, skv))
+    kl = torch.tensor([skv, 77], dtype=torch.int32, device=cuda_device)
     before = (dense_attention.launches, dense_attention_backward.dkv_launches,
               dense_attention_backward.dq_launches)
+    short = dense_attention.short_launches
     out = dense_attention(q, k, v, kv_len=kl)
     g = torch.randn_like(out)
     out.backward(g)
@@ -312,6 +481,7 @@ def test_dense_attention_autograd_on_card(cuda_device):
     assert (dense_attention.launches, dense_attention_backward.dkv_launches,
             dense_attention_backward.dq_launches) == tuple(
                 c + 1 for c in before)
+    assert dense_attention.short_launches - short == int(skv <= 512)
     o, lse = _plain_forward(q.detach(), k.detach(), v.detach(), 128 ** -0.5,
                             kl, True)
     want = dense_attention_backward_plain(
@@ -375,6 +545,31 @@ def test_dense_kernel_rejects_what_it_does_not_cover(cuda_device):
         dense_attention(q[..., :64], k[..., :64], v[..., :64])
     with pytest.raises(NotImplementedError):
         dense_attention(q, k, v, causal=True)
+    # a launch the short-key kernel refuses (over its 512 keys, routed to
+    # it) raises with the CUDA error string and counts nothing
+    q, k, v = _dense_inputs(15, cuda_device, 1, 256, 600)
+    before = (dense_attention.launches, dense_attention.short_launches)
+    with mock.patch.object(flash_attention, "SHORT_KEYS", 1024):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dense_attention(q, k, v)
+    assert (dense_attention.launches, dense_attention.short_launches) == \
+        before
+
+
+@pytest.mark.gpu
+def test_dense_short_kernel_build_failure_raises(cuda_device, tmp_path):
+    """A short-key source that does not compile raises nvcc's output at the
+    first call; nothing falls back to another kernel."""
+    bad = tmp_path / "dense_attn_short.cu"
+    bad.write_text("this does not compile;\n")
+    q, k, v = _dense_inputs(15, cuda_device, 1, 128, 64)
+    flash_attention.build_short_kernel.cache_clear()
+    try:
+        with mock.patch.object(flash_attention, "SHORT_KERNEL_SOURCE", bad):
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                dense_attention(q, k, v)
+    finally:
+        flash_attention.build_short_kernel.cache_clear()
 
 
 @pytest.mark.gpu

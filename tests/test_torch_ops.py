@@ -11,6 +11,7 @@ import torch
 from jenga_tpu.curves.blocks import build_curve_plan
 from jenga_tpu.ops.attention_ref import (
     block_sparse_attention_reference as jax_reference)
+from jenga_tpu.ops.flash_attention import attention_bshd as jax_bshd
 from jenga_tpu.ops.flash_attention import dense_attention as jax_dense
 from jenga_tpu.ops.sparse_autodiff import _effective_mask as jax_effective
 from jenga_tpu.ops.sparse_autodiff import (
@@ -20,8 +21,10 @@ from jenga_tpu_torch.ops.attention_ref import block_sparse_attention_reference
 from jenga_tpu_torch.ops.block_sparse_attention import (
     block_sparse_attention, block_sparse_attention_plain)
 from jenga_tpu_torch.ops import flash_attention
-from jenga_tpu_torch.ops.flash_attention import (dense_attention,
-                                                 dense_attention_plain)
+from jenga_tpu_torch.ops.flash_attention import (attention_bshd,
+                                                 dense_attention,
+                                                 dense_attention_plain,
+                                                 dense_route)
 from jenga_tpu_torch.ops.sparse_dispatch import (block_lists_from_mask,
                                                  effective_mask,
                                                  sparse_attention_from_mask)
@@ -207,6 +210,68 @@ def test_dense_attention_matches_jax(monkeypatch, sq, skv, kv_len, slab):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+def _last_chunk_len(skv: int) -> int:
+    """A key count inside the last 16-key chunk of ``skv`` keys (the short
+    route's narrow last tile): keys past it in that chunk are masked."""
+    lo = 16 * ((skv - 1) // 16)
+    return lo + max(1, (skv - lo) // 2)
+
+
+@pytest.mark.parametrize("kv_len", [None, "last_chunk"])
+@pytest.mark.parametrize("skv", [1, 17, 257, 512])
+def test_attention_bshd_matches_jax(skv, kv_len):
+    """The port's attention_bshd over the model's [B, S, H, D] layout (on
+    the CPU the plain version of both of D's routes) vs JAX's
+    attention_bshd on the CPU, f32: the short route's key counts (one key,
+    a tile and a chunk, Wan's 257 image and 512 text keys), a ragged query
+    count (200 rows: a last tile of 72), kv_len None and [0, k] with k
+    inside the last 16-key chunk (the empty sample gives zeros). 1e-5
+    covers summation order."""
+    rng = np.random.default_rng(31 + skv)
+    b, sq, h, d = 2, 200, 3, 32
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, skv, h, d)).astype(np.float32)
+            for _ in range(2))
+    kl = (None if kv_len is None
+          else np.array([0, _last_chunk_len(skv)], np.int32))
+    jkl = None if kl is None else jnp.asarray(kl)
+    want = np.asarray(jax_bshd(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), kv_len=jkl))
+    got = attention_bshd(t(q), t(k), t(v),
+                         kv_len=None if kl is None else t(kl)).numpy()
+    assert got.shape == (b, sq, h, d) and np.isfinite(got).all()
+    if kl is not None:
+        assert not got[0].any()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_dense_route_is_a_function_of_the_key_count():
+    """D's forward kernel on the card follows from Skv alone: the
+    short-key kernel up to 512 keys, the mainloop over it."""
+    assert flash_attention.SHORT_KEYS == 512
+    assert {dense_route(n) for n in (1, 16, 17, 128, 257, 384, 511, 512)} \
+        == {"short"}
+    assert {dense_route(n) for n in (513, 640, 1024, 32760)} == {"mainloop"}
+
+
+def test_short_route_reads_the_model_layout_in_place():
+    """The short route's operand rule, on the CPU: a [B, S, H, D] tensor
+    seen as [B, H, S, D] is taken as it is, through its strides (a dim of
+    length 1 gets stride 8); a pointer off 16 bytes or a stride off 8
+    elements is copied to a contiguous tensor."""
+    x = torch.zeros(2, 300, 3, 128).transpose(1, 2)
+    assert flash_attention._map_operand(x) is x
+    assert flash_attention._map_strides(x) == [3 * 128, 128, 300 * 3 * 128]
+    one = torch.zeros(1, 1, 5, 128)
+    assert flash_attention._map_strides(one) == [128, 8, 8]
+    flat = torch.zeros(2 * 3 * 300 * 128 + 1)
+    y = flat[1:].view(2, 3, 300, 128)
+    for bad in (y, torch.zeros(2, 3, 300, 132)[..., :128]):
+        c = flash_attention._map_operand(bad)
+        assert c is not bad and c.is_contiguous() and torch.equal(c, bad)
+        assert c.data_ptr() % 16 == 0
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper is its plain version and does not count
     a kernel launch."""
@@ -222,10 +287,17 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 def test_dense_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors D's wrapper is its plain version whatever the route
+    (256 keys would take the short-key kernel on the card) and counts no
+    launch on either; attention_bshd likewise."""
     q, k, v = (t(x) for x in _qkv(13, nb=2, d=128))
-    before = dense_attention.launches
+    before = (dense_attention.launches, dense_attention.short_launches)
     a = dense_attention(q, k, v, kv_len=[200])
-    assert dense_attention.launches == before
+    c = attention_bshd(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), kv_len=[200])
+    assert (dense_attention.launches, dense_attention.short_launches) == \
+        before
     assert torch.equal(a, dense_attention_plain(q, k, v, kv_len=[200]))
+    assert torch.equal(c, a.transpose(1, 2))
     with pytest.raises(NotImplementedError):
         dense_attention(q, k, v, causal=True)

@@ -42,7 +42,7 @@ from jenga_tpu_torch.ops.cross_attention_resident import (
 from jenga_tpu_torch.ops.sparse_dispatch import block_lists_from_mask
 from jenga_tpu_torch.tools import (epilogue_probe, kernel_cases_ab,
                                    kernel_split_probe, pool_probe,
-                                   wan_overhead_probe2)
+                                   short_kernel_probe, wan_overhead_probe2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = 2e-5      # f32 on both sides: summation order only
@@ -314,5 +314,20 @@ def test_probe_tools_refuse_a_missing_card():
         pool_probe.run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel_cases_ab.run(str(ROOT), str(ROOT))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        short_kernel_probe.run()
     with pytest.raises(ValueError):
         attention_probe("dense", *[torch.zeros(1)] * 6)
+
+
+@pytest.mark.parametrize("variant", sorted(short_kernel_probe.VARIANTS))
+def test_short_kernel_probe_variants_edit_the_kernel(variant):
+    """Each variant of the short-key kernel's probe finds the text it
+    edits exactly once in the kernel's source, so the probe keeps
+    measuring what it names as the kernel changes."""
+    from jenga_tpu_torch.ops.flash_attention import SHORT_KERNEL_SOURCE
+    src = SHORT_KERNEL_SOURCE.read_text()
+    edited = short_kernel_probe.variant_source(variant)
+    old, new = short_kernel_probe.VARIANTS[variant]
+    assert edited != src and src.count(old) == 1
+    assert len(edited) == len(src) - len(old) + len(new)
