@@ -6,12 +6,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints its seconds; any failure exits non-zero before the
 result line):
   1. toolchain: torch/CUDA versions, nvcc, the card's name and power
-     limit; builds all seven kernel sources from jenga_tpu_torch/csrc/ (one
+     limit; builds all eight kernel sources from jenga_tpu_torch/csrc/ (one
      nvcc per source, started together; sm_90a) and prints ptxas' resource
      use; fails if ptxas reports spill stores or loads in a production
      instance (K1/K1m/K2 fixed and online max, D on both routes: the
-     mainloop and the short-key kernel, D's dK|dV and dQ backward kernels)
-     or in P4, which has its own Hopper design;
+     mainloop and the short-key kernel, D's backward on both routes: the
+     dK|dV and dQ kernels and the short-key call's three) or in P4, which
+     has its own Hopper design;
   2. kernels vs their plain torch versions on the card, max abs error
      <= 1e-2 in each case, each case timed against the plain version and
      beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
@@ -43,14 +44,20 @@ result line):
      same layout, each call running the short-key kernel once a pair (and
      one add), no copy. K1 also at Wan2.1-14B's self-attention shape (B=2, 40
      heads, 256 blocks, joint q8 with first-frame forcing), with flex.
-     D's backward (the dK|dV kernel, then the dQ kernel, from the forward
-     kernel's output and base-2 statistics) against the plain backward
-     at Wan's self-attention (2x12x32768), Wan 1.3B's cross-attention
-     over 512 keys, Wan2.1-14B's image cross-attention (2x40x32768 over
-     257 keys) and HunyuanVideo's joint dense shape with kv_len below Skv:
-     each gradient within 2e-2 relative L2 and its max abs error within
-     1e-2 of its largest element; each kernel, the pair and the plain
-     backward timed beside their bounds and the SDPA (flash) backward;
+     D's backward on the route of its key count (over 512 keys the dK|dV
+     kernel, then the dQ kernel; up to 512 the short-key call, which
+     computes di itself; both from the forward kernel's output and base-2
+     statistics) against the plain backward at Wan's self-attention
+     (2x12x32768) and HunyuanVideo's joint dense shape with kv_len below
+     Skv (the first route), Wan 1.3B's cross-attention over 512 keys,
+     Wan2.1-14B's image (2x40x32768 over 257 keys) and text (512 keys)
+     cross-attention and kv_len 0 and past Skv over 32,760 rows (the
+     second), then Wan's calls under autograd, attention_bshd's backward
+     on [B, S, H, D] for Wan 1.3B and for the 14B text + image pair on one
+     q (one short-key call a pair, no copy, [B, S, H, D] gradients): each
+     gradient within 2e-2 relative L2 and its max abs error within 1e-2 of
+     its largest element; each kernel, the call and the plain backward
+     timed beside their bounds and the SDPA (flash) backward;
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
@@ -212,10 +219,11 @@ result line):
      .npy with JSON metadata and read through LatentDataset, seeded text
      states over 512 keys, rank-16 adapters on DEFAULT_TARGETS, remat,
      AdamW; 3 dense steps (D and its backward on self- and
-     cross-attention: per step D 120, dK|dV 60, dQ 60), then 2 carved
-     steps with the Base stage-1 carve (drop 0.75, p_remain 0.9, joint
-     q8; K1 60, D 60, dK|dV 30, dQ 30: the recompute backward on the
-     self-attention). Each step prints its seconds, loss, the LoRA
+     cross-attention: per step D 120, dK|dV 30 and dQ 30 on the
+     self-attention, 30 short-key backward calls on the cross-attention),
+     then 2 carved steps with the Base stage-1 carve (drop 0.75, p_remain
+     0.9, joint q8; K1 60, D 60, 30 short-key backward calls: the
+     recompute backward on the self-attention). Each step prints its seconds, loss, the LoRA
      gradient's norm, peak memory and launches, and fails unless loss and
      norm are finite and positive and the counts as stated. Then
      export_kohya -> merge_lora (on the CPU) -> a carved forward with the
@@ -324,6 +332,27 @@ SHORT_DESIGN = ("sm_90a csrc/dense_attn_short.cu on the attn_sm90.cuh "
                 "softmax, kv_len masking by select; 4-D tensor maps over the "
                 "caller's strides, so [B, S, H, D] is read and written "
                 "without a copy")
+# the design of D's short-key backward (the kernels line's `design`)
+BWD_SHORT_DESIGN = ("sm_90a csrc/dense_attn_bwd_short.cu on the attn_sm90.cuh "
+                    "primitives, for Skv <= 512, one call of three kernels: "
+                    "bwd_dq_short, persistent (one block per SM over a "
+                    "head-major run of (batch*head, 128-row query tile) "
+                    "units), K of the head resident, V resident up to 320 "
+                    "keys else a 4-stage ring, 32-key sub-tiles, Q and dO "
+                    "copied into registers as they land, di = rowsum(dO O) "
+                    "from the dO tile and O rows prefetched into L2, S and dP "
+                    "m64n32k16 and dQ += dS K m64n128k16 issued together, the "
+                    "two consumer warpgroups taking turns on named barriers; "
+                    "bwd_dkv_short over (128-key tile, query chunk, "
+                    "batch*head) with the key tile fastest, the chunk count "
+                    "set to fill the card's waves, K and V of the tile "
+                    "resident, a 2-stage ring of 64-row Q, dO, lse and di, "
+                    "S^T, dP^T m64n64k16 and dV, dK m64n128k16, ping-pong, a "
+                    "last tile of <= 64 keys run by both warpgroups over two "
+                    "query tiles a stage; bwd_dkv_reduce summing the f32 "
+                    "partials in a fixed order; 4-D tensor maps over the "
+                    "caller's strides, gradients written with the operands' "
+                    "layouts")
 # the design of P4 (its kernels-line `design`)
 P4_DESIGN = ("sm_90a csrc/cross_attn_resident.cu on the attn_sm90.cuh "
              "primitives (not its mainloop): K of all 512 keys (128 KB) "
@@ -403,6 +432,8 @@ def phase_toolchain():
                for m in (bsa, fa, ap, bp, xr)]
     sources.append((fa.SHORT_KERNEL_SOURCE, fa.build_short_kernel, True))
     sources.append((fa.BWD_KERNEL_SOURCE, fa.build_bwd_kernel, True))
+    sources.append((fa.BWD_SHORT_KERNEL_SOURCE, fa.build_bwd_short_kernel,
+                    True))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda e: e[1](), sources))
     print(f"built all {len(sources)} kernel sources in "
@@ -636,13 +667,58 @@ def _sdpa_bwd_ms(q, k, v, do):
         out, (qg, kg, vg), do, retain_graph=True), 10)
 
 
+def _kernel_device_ms(fn, reps: int = 5) -> dict:
+    """{kernel name: device ms of one launch} from torch.profiler over
+    ``reps`` calls of fn() after a warm-up, for a call that launches each
+    of its kernels once (the short-key backward's three kernels run from
+    one C call, so each is timed on the card by its own events). The mean
+    over the launches the profiler recorded: after an earlier session in
+    the process it has been seen to drop the first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"bwd_\w+", e.name)
+            times.setdefault(m.group(0) if m else e.name, []).append(
+                e.device_time / 1e3)
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def _bwd_counts():
+    from jenga_tpu_torch.ops.flash_attention import dense_attention_backward
+    return (dense_attention_backward.dkv_launches,
+            dense_attention_backward.dq_launches,
+            dense_attention_backward.short_launches)
+
+
+def _check_bwd_errors(name, errs):
+    for g, e in errs.items():
+        if not (e["max_abs_err"] <= BWD_ABS_TOL * e["ref_max"]
+                and e["rel_err"] <= KERNEL_REL_TOL):
+            fail(f"{name} {g}: max abs error {e['max_abs_err']} (bound "
+                 f"{BWD_ABS_TOL} x {e['ref_max']}), relative error "
+                 f"{e['rel_err']} (bound {KERNEL_REL_TOL})")
+
+
 def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
-    """D's backward kernels (dK|dV, then dQ) against the plain backward on
-    the card's own forward output and statistics: max abs and relative L2
-    error of each gradient, ms of each kernel and of the pair through the
-    wrapper (with di and the padded statistics), the plain backward's ms,
-    the bounds, and the SDPA backward's ms where SDPA takes the case (no
-    per-sample key length)."""
+    """D's backward on the route of its key count against the plain
+    backward on the card's own forward output and statistics: max abs and
+    relative L2 error of each gradient, ms of the dK|dV and the dQ kernels
+    (over 512 keys each kernel alone on the wrapper's operands, by CUDA
+    events; up to 512 keys the short-key call's kernels by their device
+    time, the chunks' sum counted with dK|dV) and of the pair through the
+    wrapper (with di and, over 512 keys, the padded statistics), the plain
+    backward's ms, the bounds, and the SDPA backward's ms where SDPA takes
+    the case (no per-sample key length). The record's ``route`` is the one
+    the counters show, which must be ``dense_route(Skv)``."""
     import torch
     from jenga_tpu_torch.ops import flash_attention as fa
     b, h, sq, d = q.shape
@@ -651,8 +727,11 @@ def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
                                         with_lse=True)
     do = torch.randn(q.shape, generator=gen, device="cuda",
                      dtype=torch.bfloat16)
+    before = _bwd_counts()
     got = fa.dense_attention_backward(q, k, v, o, lse, do, kv_len=kv_len)
     torch.cuda.synchronize()
+    counts = tuple(x - y for x, y in zip(_bwd_counts(), before))
+    took = {(0, 0, 1): "short", (1, 1, 0): "mainloop"}.get(counts, counts)
     ref = fa.dense_attention_backward_plain(q.float(), k.float(), v.float(),
                                             o.float(), lse, do.float(),
                                             kv_len=kv_len)
@@ -663,28 +742,38 @@ def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
     keys = b * skv if kv_len is None else sum(
         min(max(int(x), 0), skv) for x in kv_len.tolist())
     pairs = h * sq * keys * d       # (query, valid key, dim) products
-    rec = {"kernel": "dense_attn_bwd", "case": name, "q": list(q.shape),
-           "kv": list(k.shape),
+    rec = {"kernel": "dense_attn_bwd", "case": name, "route": took,
+           "q": list(q.shape), "kv": list(k.shape),
            "kv_len": None if kv_len is None else kv_len.tolist(),
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
            "rel_err": max(e["rel_err"] for e in errs.values()),
            "errors": errs}
-    # each kernel alone on the wrapper's own operands
-    sq_pad = -(-sq // 128) * 128
-    lse_p = fa._padded_rows(lse, sq_pad, float("inf"))
-    di_p = fa._padded_rows((do.float() * o.float()).sum(-1), sq_pad, 0.0)
-    kl = fa._kv_len_int32(kv_len, b, q.device)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    lib = fa.build_bwd_kernel()
-    stream = torch.cuda.current_stream().cuda_stream
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse_p.data_ptr(), di_p.data_ptr(),
-              None if kl is None else kl.data_ptr())
-    tail = (b * h, h, sq, skv, d ** -0.5, stream)
-    rec["dkv_ms"] = time_ms(lambda: lib.dense_attn_bwd_dkv(
-        *common, dk.data_ptr(), dv.data_ptr(), *tail), 10)
-    rec["dq_ms"] = time_ms(lambda: lib.dense_attn_bwd_dq(
-        *common, dq.data_ptr(), *tail), 10)
+    if took == "short":
+        per = _kernel_device_ms(lambda: fa.dense_attention_backward(
+            q, k, v, o, lse, do, kv_len=kv_len))
+        rec["dq_ms"] = per.get("bwd_dq_short", 0.0)
+        rec["dkv_ms"] = (per.get("bwd_dkv_short", 0.0)
+                         + per.get("bwd_dkv_reduce", 0.0))
+        rec["device_kernels"] = sorted(per)
+    else:
+        # each kernel alone on the wrapper's own operands
+        sq_pad = -(-sq // 128) * 128
+        lse_p = fa._padded_rows(lse, sq_pad, float("inf"))
+        di_p = fa._padded_rows((do.float() * o.float()).sum(-1), sq_pad,
+                               0.0)
+        kl = fa._kv_len_int32(kv_len, b, q.device)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        lib = fa.build_bwd_kernel()
+        stream = torch.cuda.current_stream().cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse_p.data_ptr(), di_p.data_ptr(),
+                  None if kl is None else kl.data_ptr())
+        tail = (b * h, h, sq, skv, d ** -0.5, stream)
+        rec["dkv_ms"] = time_ms(lambda: lib.dense_attn_bwd_dkv(
+            *common, dk.data_ptr(), dv.data_ptr(), *tail), 10)
+        rec["dq_ms"] = time_ms(lambda: lib.dense_attn_bwd_dq(
+            *common, dq.data_ptr(), *tail), 10)
+        del lse_p, di_p, dq, dk, dv
     rec["ms"] = time_ms(lambda: fa.dense_attention_backward(
         q, k, v, o, lse, do, kv_len=kv_len), 10)
     rec["plain_ms"] = time_ms(lambda: fa.dense_attention_backward_plain(
@@ -703,12 +792,121 @@ def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
     rec["library_ms"] = (None if kv_len is not None else
                          _sdpa_bwd_ms(q, k, v, do))
     print(f"   {json.dumps(rec)}", flush=True)
-    for g, e in errs.items():
-        if not (e["max_abs_err"] <= BWD_ABS_TOL * e["ref_max"]
-                and e["rel_err"] <= KERNEL_REL_TOL):
-            fail(f"{name} {g}: max abs error {e['max_abs_err']} (bound "
-                 f"{BWD_ABS_TOL} x {e['ref_max']}), relative error "
-                 f"{e['rel_err']} (bound {KERNEL_REL_TOL})")
+    _check_bwd_errors(name, errs)
+    if took != fa.dense_route(skv):
+        fail(f"{name}: D's backward took {took} (dK|dV, dQ, short-key "
+             f"launches), expected the {fa.dense_route(skv)} route")
+    if kv_len is not None and kv_len.min().item() <= 0:
+        i = int(kv_len.argmin())
+        got = fa.dense_attention_backward(q, k, v, o, lse, do, kv_len=kv_len)
+        if any(x[i].any() for x in got):
+            fail(f"{name}: the kv_len 0 sample's gradients are not all 0")
+    return rec
+
+
+def _bshd_bwd_case(name, gen, q, pairs):
+    """The backward of Wan's cross-attention as the model calls it:
+    ``attention_bshd`` on q [B, S, H, D] over each (k, v) [B, Skv, H, D]
+    pair, the outputs summed and reshaped to [B, S, H * D], under autograd.
+    Against the plain forward and backward in f32: the gradients of q (the
+    pairs' sum) and of each k and v; ms of the backward alone
+    (``torch.autograd.grad`` on a retained graph), of the plain backward
+    and of SDPA's (flash) on the same operands and layout; the bound (q, do
+    and each o read once, k and v read once, every gradient written once;
+    five products a pair). One backward must run the short-key call once a
+    pair (the counters) and no copy kernel (the profiler), and give [B, S,
+    H, D] gradients."""
+    import torch
+    from jenga_tpu_torch.ops import flash_attention as fa
+    from jenga_tpu_torch.tools.library_baseline import sdpa_flash
+    b, s, h, d = q.shape
+    leaves = [q.requires_grad_()] + [x.requires_grad_() for kv in pairs
+                                     for x in kv]
+    g = torch.randn((b, s, h * d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def forward(attn):
+        out = attn(q, *pairs[0])
+        for k, v in pairs[1:]:
+            out = out + attn(q, k, v)
+        return out.reshape(b, s, h * d)
+
+    def bhsd(fn, *xs):
+        return fn(*(x.transpose(1, 2) for x in xs)).transpose(1, 2)
+    out = forward(fa.attention_bshd)
+    before = _bwd_counts()
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    counts = tuple(x - y for x, y in zip(_bwd_counts(), before))
+    layouts = all(x.shape == y.shape and x.is_contiguous()
+                  for x, y in zip(grads, leaves))
+    # the plain reference: forward and backward in f32 per pair
+    gt = g.reshape(b, s, h, d).transpose(1, 2).float()
+    qt = q.detach().transpose(1, 2).float()
+    ref = [torch.zeros_like(qt)]
+    for k, v in pairs:
+        kt, vt = (x.detach().transpose(1, 2).float() for x in (k, v))
+        o, lse = fa._plain_forward(qt, kt, vt, d ** -0.5, None, True)
+        dq, dk, dv = fa.dense_attention_backward_plain(qt, kt, vt, o, lse,
+                                                       gt)
+        ref[0] += dq
+        ref += [dk, dv]
+        del o, lse
+    errs = {}
+    names = ["dq"] + [f"{t}{i}" for i in range(len(pairs))
+                      for t in ("dk", "dv")]
+    for nm, x, y in zip(names, grads, ref):
+        x = x.transpose(1, 2)
+        errs[nm] = {**_errors(f"{name} {nm}", x, y),
+                    "ref_max": y.abs().max().item()}
+    del ref, grads
+    # the kernels one backward runs, on the calling thread (the engine's
+    # own device thread launches out of the profiler's sight); the
+    # profiler has been seen to miss the short-key call's first kernel
+    # after earlier sessions in the process, so the launches are checked
+    # by the counters and the kernel names only for copies
+    with torch.autograd.set_multithreading_enabled(False):
+        kernels = _device_kernels(lambda: torch.autograd.grad(
+            out, leaves, g, retain_graph=True))
+    rec = {"kernel": "dense_attn_bwd", "case": name, "route": "short",
+           "call": "attention_bshd", "q": list(q.shape),
+           "kv": [list(k.shape) for k, _ in pairs],
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "rel_err": max(e["rel_err"] for e in errs.values()),
+           "errors": errs, "gradients_bshd": layouts,
+           "device_kernels": sorted({re.sub(r"\(.*", "", n)[-60:]
+                                     for n in kernels}),
+           "copy_kernels": sum("copy" in n for n in kernels)}
+    rec["ms"] = time_ms(lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), 10)
+    o_l = [fa.dense_attention_forward(q.detach().transpose(1, 2),
+                                      k.detach().transpose(1, 2),
+                                      v.detach().transpose(1, 2),
+                                      with_lse=True) for k, v in pairs]
+    gq = g.reshape(b, s, h, d).transpose(1, 2)
+    rec["plain_ms"] = time_ms(lambda: [fa.dense_attention_backward_plain(
+        q.detach().transpose(1, 2), k.detach().transpose(1, 2),
+        v.detach().transpose(1, 2), o, lse, gq)
+        for (k, v), (o, lse) in zip(pairs, o_l)], 2)
+    del o_l
+    flop = sum(10.0 * b * h * s * k.shape[1] * d for k, _ in pairs)
+    nbytes = 2 * ((3 + len(pairs)) * q.numel()
+                  + 4 * sum(k.numel() for k, _ in pairs))
+    rec["tflops"] = flop / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_ms"], rec["bound_by"] = bound(flop, nbytes)
+    s_out = forward(lambda *xs: bhsd(sdpa_flash, *xs))
+    rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        s_out, leaves, g, retain_graph=True), 10)
+    del s_out, out
+    for x in leaves:
+        x.requires_grad_(False)
+    print(f"   {json.dumps(rec)}", flush=True)
+    _check_bwd_errors(name, errs)
+    if counts != (0, 0, len(pairs)) or rec["copy_kernels"] or not layouts:
+        fail(f"{name}: the backward counted {counts} (dK|dV, dQ, short-key "
+             f"launches) and ran {rec['copy_kernels']} copies, [B, S, H, D] "
+             f"gradients {layouts}: expected {len(pairs)} short-key calls, "
+             f"no copy")
     return rec
 
 
@@ -932,10 +1130,15 @@ def phase_kernel_cases():
         [(bshd(2, n, 40, 128), bshd(2, n, 40, 128)) for n in (512, 257)])
     dense += [extra["g_bshd_wan13_cross"], extra["h_bshd_wan14_i2v_cross"]]
     del q
-    # D's backward (dK|dV and dQ kernels): (a) Wan self-attention, (b) Wan
-    # 1.3B cross-attention over 512 keys, (c) Wan2.1-14B's image
-    # cross-attention over 257 keys, (d) HunyuanVideo's joint dense shape
-    # with kv_len below Skv (the padded text)
+    # D's backward, on the route of its key count: (a) Wan self-attention
+    # and (d) HunyuanVideo's joint dense shape with kv_len below Skv (the
+    # padded text) take the dK|dV and dQ kernels; (b) Wan 1.3B's
+    # cross-attention over 512 keys, (c) Wan2.1-14B's image
+    # cross-attention over 257 keys, (e) its text cross-attention over 512
+    # keys and (f) ragged kv_len (0, past Skv) over 32,760 rows take the
+    # short-key call; then the model's calls under autograd, (g) Wan 1.3B's
+    # cross-attention and (h) Wan2.1-I2V-14B's text and image
+    # cross-attention on one q
     bwd = []
     q, k, v = _qkv(gen, 2, 12, 32768)
     bwd.append(_dense_bwd_case("a_wan_self", gen, q, k, v))
@@ -944,12 +1147,27 @@ def phase_kernel_cases():
     del q, k, v
     q, k, v = _qkv(gen, 2, 40, 32768, skv=257)
     bwd.append(_dense_bwd_case("c_wan14b_image_cross", gen, q, k, v))
+    _, k, v = _qkv(gen, 2, 40, 512)
+    bwd.append(_dense_bwd_case("e_wan14b_text_cross", gen, q, k, v))
     del q, k, v
     s = 32656
     q, k, v = _qkv(gen, 1, 24, s)
     kl = torch.tensor([s - 40], dtype=torch.int32, device="cuda")
     bwd.append(_dense_bwd_case("d_hy_joint_dense", gen, q, k, v, kl))
     del q, k, v
+    q, k, v = _qkv(gen, 2, 12, 32760, skv=257)
+    kl = torch.tensor([0, 700], dtype=torch.int32, device="cuda")
+    bwd.append(_dense_bwd_case("f_ragged_kv_len", gen, q, k, v, kl))
+    del q, k, v
+    q = bshd(2, 32760, 12, 128)
+    bwd.append(_bshd_bwd_case("g_bshd_wan13_cross_bwd", gen, q,
+                              [(bshd(2, 512, 12, 128),
+                                bshd(2, 512, 12, 128))]))
+    q = bshd(2, 32760, 40, 128)
+    bwd.append(_bshd_bwd_case(
+        "h_bshd_wan14_i2v_cross_bwd", gen, q,
+        [(bshd(2, n, 40, 128), bshd(2, n, 40, 128)) for n in (512, 257)]))
+    del q
     extra["bwd"] = bwd
     torch.cuda.empty_cache()
     done(t0)
@@ -990,7 +1208,8 @@ def _text(gen, cfg, n_pad):
 
 PROBES = ("attn_probe_split", "attn_probe_epilogue", "block_pool",
           "cross_attn_resident")   # P1-P4: no main path launches them
-BWD = ("dense_attn_bwd_dkv", "dense_attn_bwd_dq")   # only training does
+BWD = ("dense_attn_bwd_dkv", "dense_attn_bwd_dq",
+       "dense_attn_bwd_short")                       # only training does
 NOT_SERVING = dict.fromkeys(PROBES + BWD, 0)
 
 
@@ -999,7 +1218,8 @@ class _Launches:
     read on exit. The block-sparse wrapper counts its all-member launches
     (K1/K2) and its membership-mode launches (K1m) apart, D its launches
     and, among them, those of the short-key kernel, the probe wrapper its
-    P1 and P2 launches, D's backward its dK|dV and dQ launches."""
+    P1 and P2 launches, D's backward its dK|dV and dQ launches (over 512
+    keys) and its short-key calls."""
 
     def __enter__(self):
         from jenga_tpu_torch.ops.attention_probe import attention_probe
@@ -1018,6 +1238,8 @@ class _Launches:
             "dense_attn_short": (dense_attention, "short_launches"),
             "dense_attn_bwd_dkv": (dense_attention_backward, "dkv_launches"),
             "dense_attn_bwd_dq": (dense_attention_backward, "dq_launches"),
+            "dense_attn_bwd_short": (dense_attention_backward,
+                                     "short_launches"),
             "attn_probe_split": (attention_probe, "split_launches"),
             "attn_probe_epilogue": (attention_probe, "epilogue_launches"),
             "block_pool": (block_pool, "launches"),
@@ -1656,11 +1878,15 @@ STOCK_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 
 def _bwd_entries(bwd, runs):
-    """The kernels-line entries of D's two backward kernels: errors over
-    all four phase-2 cases; ms, bounds, the plain backward's ms (it
-    computes dq, dk and dv together) and the SDPA backward's ms (dq, dk
-    and dv together) at Wan's self-attention, each case's beside them."""
-    wan_self = bwd[0]
+    """The kernels-line entries of D's backward: the dK|dV and dQ kernels
+    of the route over 512 keys (errors over its phase-2 cases; ms, bounds,
+    the plain backward's ms, which computes dq, dk and dv together, and the
+    SDPA backward's at Wan's self-attention, each case's beside them) and
+    the short-key call (errors over its cases; its ms those of the pair at
+    Wan-14B's image cross-attention, with the dQ and dK|dV kernels' own)."""
+    long_cases = [r for r in bwd if r["route"] == "mainloop"]
+    short = [r for r in bwd if r["route"] == "short"]
+    wan_self = long_cases[0]
     out = []
     for name, key, line, kernel_line, call_line in (
             ("dense_attn_bwd_dkv", "dkv", 941, 796, 1121),
@@ -1674,12 +1900,14 @@ def _bwd_entries(bwd, runs):
             "replaces_kernel": f"{STOCK_FLASH}:{kernel_line}, pallas_call "
                                f":{call_line}, reached from "
                                f"jenga_tpu/ops/flash_attention.py:92",
+            "of": "D's backward for Skv > 512",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(r["errors"][g]["max_abs_err"] for r in bwd
+            "max_abs_err": max(r["errors"][g]["max_abs_err"]
+                               for r in long_cases
                                for g in (("dk", "dv") if key == "dkv"
                                          else ("dq",))),
-            "rel_err": max(r["errors"][g]["rel_err"] for r in bwd
+            "rel_err": max(r["errors"][g]["rel_err"] for r in long_cases
                            for g in (("dk", "dv") if key == "dkv"
                                      else ("dq",))),
             "ms": wan_self[f"{key}_ms"],
@@ -1693,8 +1921,40 @@ def _bwd_entries(bwd, runs):
             "pair_bound_ms": wan_self["pair_bound_ms"],
             "cases": {r["case"]: {k: r[k] for k in (
                 f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by", "ms",
-                "pair_bound_ms", "plain_ms", "library_ms")} for r in bwd},
+                "pair_bound_ms", "plain_ms", "library_ms")}
+                for r in long_cases},
         })
+    image = next(r for r in short if r["case"] == "c_wan14b_image_cross")
+    by_path = {path: c["dense_attn_bwd_short"] for path, c in runs.items()}
+    out.append({
+        "name": "dense_attn_bwd_short",
+        "route": "cuda",
+        "source": "jenga_tpu_torch/csrc/dense_attn_bwd_short.cu",
+        "replaces": f"{STOCK_FLASH}:1287",
+        "also_replaces": f"{STOCK_FLASH}:941",
+        "replaces_kernel": f"{STOCK_FLASH}:1146 and :796, pallas_call "
+                           f":1456 and :1121, reached from "
+                           f"jenga_tpu/ops/flash_attention.py:92",
+        "of": "D's backward for Skv <= 512 (dQ with di, dK|dV, their sum)",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in short),
+        "rel_err": max(r["rel_err"] for r in short),
+        "ms": image["ms"],
+        "ms_of": f"Wan-14B image cross-attention {image['q']} x "
+                 f"{image['kv'][2]} keys, the call (dq, dk, dv)",
+        "plain_ms": image["plain_ms"],
+        "bound_ms": image["bound_ms"],
+        "bound_by": image["bound_by"],
+        "library_ms": image["library_ms"],
+        "library_of": "SDPA (flash) backward, dq dk dv together",
+        "dq_ms": image["dq_ms"],
+        "dkv_ms": image["dkv_ms"],
+        "design": BWD_SHORT_DESIGN,
+        "cases": {r["case"]: {k: r.get(k) for k in (
+            "ms", "dq_ms", "dkv_ms", "bound_ms", "bound_by", "dq_bound_ms",
+            "dkv_bound_ms", "plain_ms", "library_ms")} for r in short},
+    })
     return out
 
 
@@ -3293,16 +3553,17 @@ def phase_train_wan():
     # attention (dense) or K1 on self and D on cross (carved), each
     # launched again in the recompute (the cross-attention's 512 keys on
     # the short-key kernel); the backward launches dkv and dq once per
-    # dense attention
+    # dense self-attention and the short-key backward once per
+    # cross-attention
     for label, cv, n, expect in (
             ("dense", None, 3, _counts(
                 dense_attn=4 * layers, dense_attn_short=2 * layers,
-                dense_attn_bwd_dkv=2 * layers,
-                dense_attn_bwd_dq=2 * layers)),
+                dense_attn_bwd_dkv=layers, dense_attn_bwd_dq=layers,
+                dense_attn_bwd_short=layers)),
             ("carved", carve, 2, _counts(
                 block_sparse_attn=2 * layers, dense_attn=2 * layers,
-                dense_attn_short=2 * layers, dense_attn_bwd_dkv=layers,
-                dense_attn_bwd_dq=layers))):
+                dense_attn_short=2 * layers,
+                dense_attn_bwd_short=layers))):
         def apply(p, xt, t, b, cv=cv):
             return functional_call(model, p, (xt, t, b["context"]),
                                    {"carve": cv, "remat": True})

@@ -16,11 +16,15 @@ contiguous [B, H, S, D] copies). They serve Wan's cross-attention (short)
 and Wan's dense warm-up steps and HunyuanVideo's dense arm (mainloop).
 Under autograd (``torch.is_grad_enabled()`` and an operand that requires
 grad) the call goes through ``_DenseAttention``: the forward kernel also
-stores each row's base-2 log-sum-exp, and the backward computes ``di =
-rowsum(dO * O)`` in torch (as JAX does in jnp outside its kernels), then
-launches the dK|dV kernel and the dQ kernel (``csrc/dense_attn_bwd.cu``),
-which replace the stock kernel's ``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``. Each source is built at first use by
+stores each row's base-2 log-sum-exp, and the backward replaces the stock
+kernel's ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq`` on
+the same two routes. Up to ``SHORT_KEYS`` keys one call
+(``csrc/dense_attn_bwd_short.cu``) launches a dQ kernel that also computes
+``di = rowsum(dO * O)`` from the tiles it loads, then a dK|dV kernel (and
+the sum of its chunks' partials), reading and writing the caller's
+strides; over it ``di`` is computed in torch (as JAX does in jnp outside
+its kernels) and the dK|dV and dQ kernels of ``csrc/dense_attn_bwd.cu``
+run on contiguous copies. Each source is built at first use by
 ``cuda_build.build_library``.
 
 Every entry point launches its kernel for CUDA tensors (bf16, head dim
@@ -29,13 +33,16 @@ tensors; there is no fallback between the two, and none between the
 routes. Counters: ``dense_attention.launches`` (every forward launch, on
 either route, with or without the statistics),
 ``dense_attention.short_launches`` (those of the short-key route),
-``dense_attention_backward.dkv_launches`` and ``.dq_launches``.
+``dense_attention_backward.dkv_launches`` and ``.dq_launches`` (the
+route over ``SHORT_KEYS`` keys) and ``.short_launches`` (the short-key
+backward, one per call).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -45,8 +52,10 @@ __all__ = ["dense_attention", "dense_attention_plain",
            "dense_attention_forward", "dense_attention_backward",
            "dense_attention_backward_plain", "attention_bshd",
            "dense_route", "build_kernel", "build_short_kernel",
-           "bind_short_kernel", "build_bwd_kernel", "KERNEL_SOURCE",
-           "SHORT_KERNEL_SOURCE", "BWD_KERNEL_SOURCE", "SHORT_KEYS"]
+           "bind_short_kernel", "build_bwd_kernel",
+           "build_bwd_short_kernel", "bind_bwd_short_kernel",
+           "KERNEL_SOURCE", "SHORT_KERNEL_SOURCE", "BWD_KERNEL_SOURCE",
+           "BWD_SHORT_KERNEL_SOURCE", "SHORT_KEYS"]
 
 _HEAD_DIM = 128
 _BLOCK = 128        # query rows per forward thread block (the lse padding)
@@ -56,6 +65,12 @@ SHORT_KEYS = 512    # the most keys the short-key kernel holds resident
 KERNEL_SOURCE = CSRC / "dense_attn.cu"
 SHORT_KERNEL_SOURCE = CSRC / "dense_attn_short.cu"
 BWD_KERNEL_SOURCE = CSRC / "dense_attn_bwd.cu"
+BWD_SHORT_KERNEL_SOURCE = CSRC / "dense_attn_bwd_short.cu"
+# the short backward's dK|dV grid: estimated microseconds of one (64-query,
+# 128-key) item and of one f32 partial written and summed (256 KB at the
+# H100's 3.35 TB/s), which set its query chunk count (``_dkv_chunks``)
+_ITEM_US = 1.9
+_PART_US = 0.08
 
 
 @functools.lru_cache(maxsize=1)
@@ -98,6 +113,24 @@ def build_bwd_kernel() -> ctypes.CDLL:
     lib.dense_attn_bwd_dq.restype = ctypes.c_int
     lib.dense_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.dense_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def build_bwd_short_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load the short-key backward
+    kernel library."""
+    return bind_bwd_short_kernel(build_library(BWD_SHORT_KERNEL_SOURCE))
+
+
+def bind_bwd_short_kernel(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the short-key backward library's C interface on ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dense_attn_bwd_short.argtypes = [p] * 12 + [i, i, i, i, p, f, i, i,
+                                                    i, p]
+    lib.dense_attn_bwd_short.restype = ctypes.c_int
+    lib.dense_attn_bwd_short_error_string.argtypes = [ctypes.c_int]
+    lib.dense_attn_bwd_short_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -326,20 +359,86 @@ def dense_attention_forward(q, k, v, *, sm_scale: float | None = None,
     return out, None if lse is None else lse[..., :sq]
 
 
+def _dkv_chunks(segments: int, nq64: int, sms: int) -> int:
+    """Query chunks per (batch*head, 128-key tile) of the short backward's
+    dK|dV kernel: the count in 1..16 (at most the 64-row query tiles) that
+    minimises the estimated time of its waves over ``sms`` SMs plus that
+    of writing and summing the chunks' f32 partials (none for one chunk)."""
+    def cost(c):
+        waves = math.ceil(segments * c / sms) / c * nq64 * _ITEM_US
+        return waves + (c > 1) * c * segments * _PART_US
+    return min(range(1, min(16, nq64) + 1), key=lambda c: (cost(c), c))
+
+
+def _like(x, y):
+    """``y``'s values in a tensor laid out as ``empty_like(x)``."""
+    return torch.empty_like(x).copy_(y)
+
+
+def _backward_short(q, k, v, o, lse, do, sm_scale: float, kv_len):
+    """The short-key backward on the card: one call of
+    ``csrc/dense_attn_bwd_short.cu`` (its dQ kernel computes di; its dK|dV
+    kernel, and the sum of its chunks), every operand read through its
+    strides and the gradients ``empty_like`` the operands."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    q, k, v, o, do = (_map_operand(x) for x in (q, k, v, o, do))
+    if lse.dtype != torch.float32 or lse.stride(-1) != 1:
+        lse = lse.float().contiguous()
+    kl = _kv_len_int32(kv_len, b, q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    sq_pad = -(-sq // _BLOCK) * _BLOCK
+    ws = torch.empty((2, b * h, sq_pad), dtype=torch.float32,
+                     device=q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nkt = -(-skv // _BLOCK)
+    chunks = _dkv_chunks(b * h * nkt, -(-sq // 64), sms)
+    # f32 partials of dK|dV: one per chunk, and always for a last key tile
+    # of at most 64 keys (its two warpgroups' halves)
+    narrow_tail = skv - (nkt - 1) * _BLOCK <= 64
+    part = (torch.empty((b * h * nkt * chunks, 2, _BLOCK, _HEAD_DIM),
+                        dtype=torch.float32, device=q.device)
+            if chunks > 1 or narrow_tail else None)
+    strides = (ctypes.c_longlong * 26)(
+        *(st for x in (q, k, v, o, do, dq, dk, dv)
+          for st in _map_strides(x)), lse.stride(0), lse.stride(1))
+    lib = build_bwd_short_kernel()
+    _launch(lib.dense_attn_bwd_short, lib.dense_attn_bwd_short_error_string,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            None if kl is None else kl.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, sq, skv,
+            strides, float(sm_scale), q.device.index, sms, chunks,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    dense_attention_backward.short_launches += 1
+    return dq, dk, dv
+
+
 def dense_attention_backward(q, k, v, o, lse, do, *,
                              sm_scale: float | None = None, kv_len=None):
     """(dq, dk, dv) of dense attention from the forward's output and
     statistics (``dense_attention_forward(..., with_lse=True)``). CPU
-    tensors take the plain version; CUDA tensors compute ``di`` in torch
-    and launch the dK|dV kernel, then the dQ kernel, or raise."""
+    tensors take the plain version; CUDA tensors launch the kernels of
+    ``dense_route(Skv)`` or raise. On the short route (both devices) the
+    gradients take the operands' layouts (``empty_like`` of q, k and v as
+    handed in: a [B, S, H, D] tensor seen as [B, H, S, D] gets its
+    gradient in that layout); over it they are contiguous, and on the card
+    ``di`` is computed in torch and the dK|dV kernel, then the dQ kernel,
+    run on contiguous copies."""
     b, h, sq, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
+    short = dense_route(k.shape[2]) == "short"
     if not q.is_cuda:
-        return dense_attention_backward_plain(q, k, v, o, lse, do,
-                                              sm_scale=sm_scale,
-                                              kv_len=kv_len)
+        grads = dense_attention_backward_plain(q, k, v, o, lse, do,
+                                               sm_scale=sm_scale,
+                                               kv_len=kv_len)
+        return (tuple(_like(x, g) for x, g in zip((q, k, v), grads))
+                if short else grads)
     _check_operands("dense_attention_backward", q, k, v, o, do)
+    if short:
+        return _backward_short(q, k, v, o, lse, do, sm_scale, kv_len)
     q, k, v, do = _contiguous("dense_attention_backward", q, k, v, do)
     skv = k.shape[2]
     sq_pad = -(-sq // _BLOCK) * _BLOCK
@@ -368,6 +467,7 @@ def dense_attention_backward(q, k, v, o, lse, do, *,
 
 dense_attention_backward.dkv_launches = 0
 dense_attention_backward.dq_launches = 0
+dense_attention_backward.short_launches = 0
 
 
 class _DenseAttention(torch.autograd.Function):

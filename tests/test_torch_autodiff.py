@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from jenga_tpu.ops.flash_attention import attention_bshd as jax_bshd
 from jenga_tpu.ops.flash_attention import dense_attention as jax_dense
 from jenga_tpu.ops.sparse_autodiff import \
     sparse_attention_from_mask as jax_sparse
-from jenga_tpu_torch.ops import sparse_dispatch
+from jenga_tpu_torch.ops import flash_attention, sparse_dispatch
 from jenga_tpu_torch.ops.flash_attention import (
-    dense_attention, dense_attention_backward_plain, dense_attention_forward,
+    attention_bshd, dense_attention, dense_attention_backward,
+    dense_attention_backward_plain, dense_attention_forward,
     dense_attention_plain)
 from jenga_tpu_torch.ops.sparse_dispatch import (effective_mask,
                                                  sparse_attention_from_mask)
@@ -113,6 +115,76 @@ def test_dense_autograd_matches_jax_vjp(kv_len):
         for x in (got_out.detach(), tq.grad, tk.grad, tv.grad):
             assert not x[1].any()
         assert not tk.grad[0, :, 136:].any()
+
+
+@pytest.mark.parametrize("kv_len", [None, "empty_and_inside", "past"])
+@pytest.mark.parametrize("skv", [257, 512])
+def test_attention_bshd_backward_matches_jax_vjp(skv, kv_len):
+    """The backward through ``attention_bshd`` on the model's [B, S, H, D]
+    layout (Wan's cross-attention call; on the card the short-key
+    backward's route, here its plain version) against ``jax.vjp`` of the
+    JAX ``attention_bshd`` on the CPU, at Wan's 257 image and 512 text key
+    counts over a few query rows: kv_len None, 0 beside a length inside the
+    last 32-key sub-tile, and past Skv beside a length inside the first.
+    Output and gradients within 1e-5 relative L2 (both f32; the orders of
+    their sums differ); the kv_len 0 sample's output and gradients exactly
+    0, and no key at or past kv_len gets a dK or dV."""
+    b, sq, h, d = 2, 40, 2, 32
+    kl = {None: None, "empty_and_inside": [0, skv - 7],
+          "past": [skv + 100, 3]}[kv_len]
+    q, do = _np((b, sq, h, d), (b, sq, h, d), seed=6)
+    k, v = _np((b, skv, h, d), (b, skv, h, d), seed=7)
+    jkl = None if kl is None else jnp.asarray(kl, jnp.int32)
+    out, vjp = jax.vjp(lambda q, k, v: jax_bshd(q, k, v, kv_len=jkl),
+                       q, k, v)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    got_out = attention_bshd(tq, tk, tv,
+                             kv_len=None if kl is None else torch.tensor(kl))
+    got_out.backward(*_t(do))
+    assert got_out.shape == (b, sq, h, d)
+    assert rel_err(got_out.detach(), out) <= 1e-5
+    for x, y in zip((tq.grad, tk.grad, tv.grad), want):
+        assert rel_err(x, y) <= 1e-5
+    for i, n in enumerate(kl or []):
+        assert not tk.grad[i, n:].any() and not tv.grad[i, n:].any()
+        if n == 0:
+            for x in (got_out.detach(), tq.grad):
+                assert not x[i].any()
+
+
+@pytest.mark.parametrize("skv", [257, 512, 513])
+def test_backward_gradients_take_the_operands_layout(skv):
+    """D's backward gives each gradient its operand's layout on the short
+    route (a [B, S, H, D] tensor seen as [B, H, S, D], as
+    ``attention_bshd`` hands it in, gets a gradient with those strides) and
+    contiguous gradients over 512 keys, on the CPU as on the card; the
+    values are the plain backward's either way."""
+    b, sq, h, d = 2, 24, 3, 32
+    q, do = (x.transpose(1, 2) for x in _t(*_np((b, sq, h, d),
+                                                (b, sq, h, d), seed=8)))
+    k, v = (x.transpose(1, 2) for x in _t(*_np((b, skv, h, d),
+                                               (b, skv, h, d), seed=9)))
+    o, lse = dense_attention_forward(q, k, v, with_lse=True)
+    got = dense_attention_backward(q, k, v, o, lse, do)
+    want = dense_attention_backward_plain(q, k, v, o, lse, do)
+    short = flash_attention.dense_route(skv) == "short"
+    for x, y, like in zip(got, want, (q, k, v)):
+        assert x.shape == like.shape and torch.equal(x, y)
+        assert x.stride() == (like.stride() if short
+                              else y.contiguous().stride())
+
+
+@pytest.mark.parametrize("segments,nq64,sms,chunks", [
+    (96, 512, 132, 4),      # Wan 1.3B x512: 96 key tiles fill 3/4 of 132
+    (320, 512, 132, 2),     # Wan-14B x512: 320 tiles, 2.42 waves
+    (1056, 512, 132, 1),    # 8 whole waves
+    (8, 128, 132, 16),      # few tiles: the most chunks
+    (8, 3, 132, 3)])        # no more chunks than 64-row query tiles
+def test_short_backward_dkv_chunk_count(segments, nq64, sms, chunks):
+    """The short backward's dK|dV query chunk count: the one that fills
+    the card's waves best, net of its partials' cost."""
+    assert flash_attention._dkv_chunks(segments, nq64, sms) == chunks
 
 
 def test_plain_backward_is_autograd_of_plain_forward():

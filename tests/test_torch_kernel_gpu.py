@@ -416,6 +416,20 @@ def test_dense_route_follows_key_count_on_card(cuda_device, skv):
     _assert_short_matches_plain(out, q, k, v, None)
 
 
+def _bwd_counts():
+    """D's backward counters: (dK|dV, dQ, short-key backward calls)."""
+    return (dense_attention_backward.dkv_launches,
+            dense_attention_backward.dq_launches,
+            dense_attention_backward.short_launches)
+
+
+def _bwd_counts_after(before, skv):
+    """The counters after one backward over ``skv`` keys: the short-key
+    call up to 512 keys, else one dK|dV and one dQ launch."""
+    short = int(skv <= 512)
+    return (before[0] + 1 - short, before[1] + 1 - short, before[2] + short)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,skv,kv_len", [
     (1, 1024, 1024, None),          # whole tiles
@@ -442,13 +456,10 @@ def test_dense_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv,
     fin = torch.isfinite(lse_ref)
     assert torch.equal(torch.isfinite(lse), fin)
     assert (lse[fin] - lse_ref[fin]).abs().max().item() <= 1e-3
-    before = (dense_attention_backward.dkv_launches,
-              dense_attention_backward.dq_launches)
+    before = _bwd_counts()
     got = dense_attention_backward(q, k, v, o, lse, do, kv_len=kl)
     torch.cuda.synchronize()
-    assert (dense_attention_backward.dkv_launches,
-            dense_attention_backward.dq_launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert _bwd_counts() == _bwd_counts_after(before, skv)
     want = dense_attention_backward_plain(q.float(), k.float(), v.float(),
                                           o.float(), lse, do.float(),
                                           kv_len=kl)
@@ -465,22 +476,22 @@ def test_dense_backward_kernels_match_plain_on_card(cuda_device, b, sq, skv,
 @pytest.mark.parametrize("skv", [200, 600])
 def test_dense_attention_autograd_on_card(cuda_device, skv):
     """``dense_attention`` under autograd launches the forward with its
-    statistics once (200 keys: the short-key kernel; 600: the mainloop)
-    and each backward kernel once, and its gradients match the plain
-    backward (2e-2 relative L2)."""
+    statistics once and the backward once, each on the route of its key
+    count (200 keys: the short-key kernels; 600: the mainloop and the dK|dV
+    and dQ kernels), and its gradients match the plain backward (2e-2
+    relative L2)."""
     q, k, v = (x.requires_grad_() for x in _dense_inputs(
         18, cuda_device, 2, 333, skv))
     kl = torch.tensor([skv, 77], dtype=torch.int32, device=cuda_device)
-    before = (dense_attention.launches, dense_attention_backward.dkv_launches,
-              dense_attention_backward.dq_launches)
+    before = dense_attention.launches
+    bwd = _bwd_counts()
     short = dense_attention.short_launches
     out = dense_attention(q, k, v, kv_len=kl)
     g = torch.randn_like(out)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (dense_attention.launches, dense_attention_backward.dkv_launches,
-            dense_attention_backward.dq_launches) == tuple(
-                c + 1 for c in before)
+    assert dense_attention.launches == before + 1
+    assert _bwd_counts() == _bwd_counts_after(bwd, skv)
     assert dense_attention.short_launches - short == int(skv <= 512)
     o, lse = _plain_forward(q.detach(), k.detach(), v.detach(), 128 ** -0.5,
                             kl, True)
@@ -499,6 +510,212 @@ def test_dense_backward_rejects_what_it_does_not_cover(cuda_device):
         dense_attention_backward(q, k, v, o, lse, o.float())
     with pytest.raises(ValueError):
         dense_attention_backward(q, k, v, o, lse, o[:, :, :128])
+
+
+BWD_ABS_TOL = 1e-2   # chip_smoke.py's backward bound, times |reference|
+
+
+def _short_bwd_operands(seed, device, b, sq, skv, h=2, kv_len=None,
+                        sm_scale=None, layout="bhsd"):
+    """(q, k, v, o, lse, do, kl) on the card for D's short backward: bf16
+    operands in [B, H, S, D] or, with ``layout="bshd"``, [B, S, H, D]
+    tensors seen as [B, H, S, D]; o and lse from the card's forward."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(n):
+        shape = (b, n, h, 128) if layout == "bshd" else (b, h, n, 128)
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        return x.transpose(1, 2) if layout == "bshd" else x
+    q, k, v, do = randn(sq), randn(skv), randn(skv), randn(sq)
+    kl = None if kv_len is None else torch.tensor(
+        kv_len, dtype=torch.int32, device=device)
+    o, lse = dense_attention_forward(q, k, v, sm_scale=sm_scale, kv_len=kl,
+                                     with_lse=True)
+    return q, k, v, o, lse, do, kl
+
+
+def _short_bwd(q, k, v, o, lse, do, kl, sm_scale=None):
+    """The short-key backward on the card: one call counted, no launch of
+    the dK|dV or dQ kernels of the route over 512 keys."""
+    before = _bwd_counts()
+    got = dense_attention_backward(q, k, v, o, lse, do, kv_len=kl,
+                                   sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == (before[0], before[1], before[2] + 1)
+    return got
+
+
+def _assert_bwd_matches_plain(got, q, k, v, o, lse, do, kl, sm_scale=None):
+    """Each gradient against the plain backward on the same operands in f32
+    (the card's o and lse fed to both), within chip_smoke.py's bounds: max
+    abs error within 1e-2 of the reference's largest element and 2e-2
+    relative L2 (P and dS are rounded to bf16 before their products, ~2^-9
+    each, and the gradients are stored in bf16). Keys at or past kv_len get
+    exactly zero dK and dV, a sample with kv_len 0 exactly zero dQ, and
+    each gradient has its operand's shape and strides. Over one key dQ and
+    dK cancel to rounding noise (dS = P (dP - di) with dP = di, both f32
+    sums in different orders): a gradient under 1e-2 of the largest of the
+    three is held to the absolute bound at that scale (1e-4 of the largest)
+    and has no relative bound."""
+    want = dense_attention_backward_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        sm_scale=sm_scale, kv_len=kl)
+    top = max(y.abs().max().item() for y in want)
+    for name, x, y, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all(), name
+        assert x.shape == like.shape and x.stride() == like.stride(), name
+        ref_max = y.abs().max().item()
+        err = (x.float() - y).abs().max().item()
+        assert err <= BWD_ABS_TOL * max(ref_max, 1e-2 * top), (name, err)
+        if ref_max >= 1e-2 * top > 0:
+            assert _rel_l2(x, y) <= KERNEL_REL_TOL, (name, _rel_l2(x, y))
+    for i, n in enumerate([] if kl is None else kl.tolist()):
+        assert not got[1][i, :, max(n, 0):].any()
+        assert not got[2][i, :, max(n, 0):].any()
+        if n <= 0:
+            assert not got[0][i].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [1, 16, 17, 128, 257, 384, 385, 512])
+@pytest.mark.parametrize("sq", [1, 127, 129, 1000])
+def test_dense_short_backward_matches_plain_on_card(cuda_device, sq, skv):
+    """D's short-key backward against the plain backward across the last
+    32-key sub-tile's widths (1, 16, 17 keys; 257: a tile and one key;
+    385), whole tiles with V resident in the dQ kernel (128) and streamed
+    (384, 512), a single query row and ragged query tiles; CFG batch 2 over
+    2 heads."""
+    ops = _short_bwd_operands(30, cuda_device, 2, sq, skv)
+    _assert_bwd_matches_plain(_short_bwd(*ops), *ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv,kv_len", [
+    (17, [0, 17]),          # an empty sample beside a full one
+    (129, [1, 129]),        # one key; a tile and one key
+    (257, [0, 300]),        # empty; past Skv
+    (257, [250, 257]),      # inside the tail sub-tile; the whole tail
+    (384, [260, 1000]),     # V streamed: inside a tile; past Skv
+    (512, [0, 500]),        # empty; inside the last tile
+    (512, [129, 7])])       # fewer key tiles than Skv has
+def test_dense_short_backward_kv_len_on_card(cuda_device, skv, kv_len):
+    """The short-key backward with per-sample key lengths, 0 and past Skv
+    among them, over 3 heads and a ragged query count."""
+    ops = _short_bwd_operands(31, cuda_device, 2, 1000, skv, h=3,
+                              kv_len=kv_len)
+    _assert_bwd_matches_plain(_short_bwd(*ops), *ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [257, 512])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_dense_short_backward_layouts_on_card(cuda_device, layout, skv):
+    """The short-key backward reads q, k, v, o and dO through their strides
+    and gives each gradient its operand's layout: [B, S, H, D] tensors
+    seen as [B, H, S, D] get [B, S, H, D] gradients, with no copy kernel
+    on the card (the profiler sees the three short-key kernels alone)."""
+    ops = _short_bwd_operands(32, cuda_device, 2, 1000, skv, h=3,
+                              layout=layout)
+    names = _device_kernels(lambda: dense_attention_backward(*ops[:6],
+                                                             kv_len=ops[6]))
+    assert all("bwd_dq_short" in n or "bwd_dkv_short" in n
+               or "bwd_dkv_reduce" in n for n in names), names
+    got = _short_bwd(*ops)
+    if layout == "bshd":
+        assert all(x.transpose(1, 2).is_contiguous() for x in got)
+    _assert_bwd_matches_plain(got, *ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [257, 512])
+def test_dense_short_backward_through_attention_bshd_on_card(cuda_device,
+                                                              skv):
+    """``attention_bshd`` under autograd as Wan's cross-attention calls it
+    ([B, S, H, D] projections): one short-key forward, one short-key
+    backward, and leaf gradients equal to the plain backward's within the
+    bounds."""
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    q, k, v = (torch.randn((2, n, 3, 128), generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for n in (700, skv, skv))
+    g = torch.randn((2, 700, 3, 128), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    before = _bwd_counts()
+    out = attention_bshd(q, k, v)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == (before[0], before[1], before[2] + 1)
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    o, lse = _plain_forward(qt, kt, vt, 128 ** -0.5, None, True)
+    want = dense_attention_backward_plain(
+        qt.float(), kt.float(), vt.float(), o.float(), lse,
+        g.transpose(1, 2).float())
+    for x, y in zip((q.grad, k.grad, v.grad), want):
+        assert _rel_l2(x.transpose(1, 2), y) <= KERNEL_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sm_scale", [-0.05, 0.0, 0.0734])
+def test_dense_short_backward_sm_scale_on_card(cuda_device, sm_scale):
+    """A negative scale, zero (uniform weights over the valid keys) and an
+    odd one, with a ragged tail and a kv_len inside it."""
+    ops = _short_bwd_operands(34, cuda_device, 2, 500, 257,
+                              kv_len=[257, 100], sm_scale=sm_scale)
+    got = _short_bwd(*ops, sm_scale=sm_scale)
+    _assert_bwd_matches_plain(got, *ops, sm_scale=sm_scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,skv", [
+    (1, 2, 8192, 512),     # few key tiles: dK|dV in chunks, summed
+    (2, 40, 1000, 257)])   # many: one chunk
+def test_dense_short_backward_is_deterministic_on_card(cuda_device, b, h,
+                                                       sq, skv):
+    """Two calls on the same operands give equal bits: no atomics, and the
+    chunks' dK|dV partials are summed in a fixed order."""
+    ops = _short_bwd_operands(35, cuda_device, b, sq, skv, h=h)
+    first = _short_bwd(*ops)
+    again = _short_bwd(*ops)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _assert_bwd_matches_plain(first, *ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [512, 513])
+def test_dense_backward_route_follows_key_count_on_card(cuda_device, skv):
+    """512 keys take the short-key backward, 513 the dK|dV and dQ kernels:
+    the counters show which."""
+    q, k, v = _dense_inputs(36, cuda_device, 1, 300, skv)
+    do = torch.randn_like(q)
+    o, lse = dense_attention_forward(q, k, v, with_lse=True)
+    before = _bwd_counts()
+    got = dense_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == _bwd_counts_after(before, skv)
+    want = dense_attention_backward_plain(q.float(), k.float(), v.float(),
+                                          o.float(), lse, do.float())
+    for x, y in zip(got, want):
+        assert _rel_l2(x, y) <= KERNEL_REL_TOL
+
+
+@pytest.mark.gpu
+def test_dense_short_backward_build_failure_raises(cuda_device, tmp_path):
+    """A short-key backward source that does not compile raises nvcc's
+    output at the first call; nothing falls back to another kernel."""
+    bad = tmp_path / "dense_attn_bwd_short.cu"
+    bad.write_text("this does not compile;\n")
+    ops = _short_bwd_operands(37, cuda_device, 1, 128, 64)
+    flash_attention.build_bwd_short_kernel.cache_clear()
+    before = _bwd_counts()
+    try:
+        with mock.patch.object(flash_attention, "BWD_SHORT_KERNEL_SOURCE",
+                               bad):
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                dense_attention_backward(*ops[:6], kv_len=ops[6])
+    finally:
+        flash_attention.build_bwd_short_kernel.cache_clear()
+    assert _bwd_counts() == before
 
 
 @pytest.mark.gpu

@@ -18,6 +18,7 @@ version is held against its definition through ``ops/attention_ref.py``.
 
 import ast
 import functools
+import json
 import pathlib
 import types
 
@@ -318,6 +319,35 @@ def test_probe_tools_refuse_a_missing_card():
         short_kernel_probe.run()
     with pytest.raises(ValueError):
         attention_probe("dense", *[torch.zeros(1)] * 6)
+
+
+@pytest.mark.parametrize("phase", ["kernels", "train"])
+def test_kernel_cases_ab_reads_its_runs(monkeypatch, phase):
+    """``kernel_cases_ab`` reads a run's output as ``chip_smoke.py``
+    prints it: the indented phase-2 records (a backward case's dK|dV and
+    dQ ms as rows of their own), or phase 16's step seconds and gradient
+    norms; lines of other text are ignored. The child's output here is a
+    stand-in: the runs themselves need the card."""
+    rec = {"kernel": "dense_attn_bwd", "case": "b_wan_cross", "ms": 1.3,
+           "dkv_ms": 0.64, "dq_ms": 0.63}
+    steps = {"dense": [{"s": 3.7, "grad_norm": 2.3, "loss": 2.6}],
+             "carved": [{"s": 36.1, "grad_norm": 1.4, "loss": 2.2}]}
+    stdout = (f"== 2. kernels vs plain on the card\n   {json.dumps(rec)}\n"
+              f"TRAIN {json.dumps(steps)}\n")
+    seen = []
+
+    def fake_run(cmd, cwd, **kw):
+        seen.append(cmd[-1])
+        return types.SimpleNamespace(returncode=0, stdout=stdout, stderr="")
+    monkeypatch.setattr(kernel_cases_ab.subprocess, "run", fake_run)
+    got = kernel_cases_ab._one(str(ROOT), 10, phase)
+    assert got[("dense_attn_bwd", "b_wan_cross", None, None)] == 1.3
+    assert got[("dense_attn_bwd.dkv", "b_wan_cross", None, None)] == 0.64
+    assert got[("dense_attn_bwd.dq", "b_wan_cross", None, None)] == 0.63
+    assert got[("lora_step", "dense", 0, "s")] == 3.7
+    assert got[("lora_step", "carved", 0, "grad_norm")] == 1.4
+    assert ("phase_train_wan" in seen[0]) == (phase == "train")
+    assert ("phase_kernel_cases" in seen[0]) == (phase == "kernels")
 
 
 @pytest.mark.parametrize("variant", sorted(short_kernel_probe.VARIANTS))
