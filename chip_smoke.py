@@ -257,6 +257,31 @@ result line):
      rank's gathered output the same and within 2e-2 relative L2 of
      17b's, K1 and D 30 times on each rank. An ``sp:`` line gathers
      phase 17, with the card's name and power limit.
+  18. batches, decoding and the prompt expanders. (18a) ``wan-t2v`` in
+     fresh processes at Wan2.1-T2V-1.3B's full width and depth, Base, 6
+     steps at 832x480x81f, seeded random DiT, zero text states:
+     ``--prompt-file`` over three items with ``--remain-list`` keeping two
+     (two ``{id}_<YYYYMMDD-HHMMSS>_seed7_<slug>.npy`` files of finite,
+     non-zero latents; K1, D and D's short-key kernel launched as the host
+     schedules say, twice one run's), the same command again (both items
+     skipped, nothing written), ``--vbench --vbench-samples 2`` over a
+     one-prompt full_info.json (``{prompt}-0.npy`` and ``-1.npy``, which
+     differ) and a single run at ``--seed`` equal to sample 0 bit for bit;
+     seconds per item. (18b) KV-cache decoding at Qwen2.5-7B-Instruct's
+     published shape (3584 hidden, 28 layers, 28/4 heads, 18944 MLP,
+     152064 vocabulary, q/k/v biases, untied head; ~7.6B parameters,
+     seeded, bf16): two right-padded prompts of 180 and 120 ids, 32 greedy
+     tokens through ``llama_generate`` and its loop; each step's logits
+     within 2e-2 relative L2 of ``llama_hidden_states`` + head over the
+     same stream (teacher-forced), and the shorter sample's within 2e-2 of
+     its solo run over the same tokens; prefill ms, ms per decode step,
+     tokens/s, peak GiB. (18c) a small Qwen2-layout LM (q/k/v biases, no o
+     bias, untied head, rope_theta 1e6) and a small llava written as
+     safetensors directories with config.json, loaded by
+     ``LocalLLMExpander``/``LocalVLExpander`` on the card and on the CPU
+     (f32) with the stand-in tokenizer in their slot: equal generated ids,
+     first-step logits within 1e-4 relative L2, ``PromptExpander``
+     returning the decoded text. A ``batch:`` line gathers phase 18.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -2553,7 +2578,11 @@ class StandInTokenizer:
     271 (llama-3's, which the I2V crop anchors on), ``<image>`` to a fixed
     id, optional BOS/EOS around the text (CLIP's), padded with 0 to
     ``max_length``. ``.tok.convert_tokens_to_ids`` answers for
-    ``<image>``."""
+    ``<image>``. For the prompt expanders it also has HF's ``encode``,
+    ``decode`` (to ``<id>`` words), ``eos_token_id`` (None: no stop) and
+    an ``apply_chat_template`` that raises (no template)."""
+
+    eos_token_id = None
 
     def __init__(self, vocab_size, max_length, image_id=None, bos=None,
                  eos=None):
@@ -2575,6 +2604,21 @@ class StandInTokenizer:
         lo, hi = 300, min(self.vocab_size, 128000) - 20
         return lo + zlib.crc32(word.encode()) % (hi - lo)
 
+    def encode(self, text):
+        """One text's ids, unpadded (HF's ``encode``)."""
+        row = [self._id(w) for w in
+               re.findall(r"\n\n|<image>|\n|[^\s]+", text)]
+        return ([self.bos] if self.bos is not None else []) + row + (
+            [self.eos] if self.eos is not None else [])
+
+    def apply_chat_template(self, *args, **kwargs):
+        raise ValueError("the stand-in has no chat template")
+
+    def decode(self, ids, skip_special_tokens=False):
+        """``<id>`` words; the ids are kept as ``decoded``."""
+        self.decoded = [int(i) for i in ids]
+        return " ".join(f"<{i}>" for i in self.decoded)
+
     def __call__(self, texts, max_length=None):
         import numpy as np
         n = max_length or self.max_length
@@ -2582,11 +2626,7 @@ class StandInTokenizer:
         ids = np.zeros((len(texts), n), np.int64)
         mask = np.zeros((len(texts), n), np.int64)
         for i, text in enumerate(texts):
-            row = [self._id(w) for w in
-                   re.findall(r"\n\n|<image>|\n|[^\s]+", text)]
-            row = ([self.bos] if self.bos is not None else []) + row + (
-                [self.eos] if self.eos is not None else [])
-            row = row[:n]
+            row = self.encode(text)[:n]
             ids[i, :len(row)] = row
             mask[i, :len(row)] = 1
         return ids, mask
@@ -3977,6 +4017,433 @@ def phase_sp():
     return out
 
 
+
+# ---------------------------------------------------------------- phase 18
+
+_BATCH_CHILD = """
+import json, sys, time
+import torch
+import chip_smoke as S
+from jenga_tpu_torch import cli
+from jenga_tpu_torch.pipelines.wan_t2v import WanT2VPipeline
+plans, item_s = [], []
+real = WanT2VPipeline.generate
+def generate(self, context, context_null, opts, *a, **k):
+    plans.append(self.step_plan(opts))
+    t = time.perf_counter()
+    out = real(self, context, context_null, opts, *a, **k)
+    torch.cuda.synchronize()
+    item_s.append(time.perf_counter() - t)
+    return out
+WanT2VPipeline.generate = generate
+with S._Launches() as run:
+    cli.main(sys.argv[1:])
+print(json.dumps({"launches": run.counts, "plans": plans,
+                  "item_s": item_s}))
+"""
+BATCH_SIZE = ["--infer-steps", "6", "--video-size", "832", "480",
+              "--video-length", "81", "--seed", "7", "--latents-only"]
+BATCH_SHAPE = (16, 21, 60, 104)
+VBENCH_PROMPT = "a red panda climbs a mossy tree at dawn"
+
+
+def _batch_child(argv, label):
+    """One ``wan-t2v`` run in a fresh process: (its stdout, the launch
+    counts, each generation's host schedule and seconds)."""
+    tc = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _BATCH_CHILD, "wan-t2v", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=400)
+    secs = time.perf_counter() - tc
+    if proc.returncode:
+        fail(f"18a {label} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    if "FAILED" in proc.stdout:     # the batch logs a failed item, goes on
+        fail(f"18a {label}: an item failed:\n{proc.stdout[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"   {label}: {secs:.3f} s in all, seconds per item "
+          f"{[round(s, 4) for s in rec['item_s']]}, schedules "
+          f"{rec['plans']}, kernel launches {rec['launches']}", flush=True)
+    return proc.stdout, rec
+
+
+def _scheduled(plans, layers=30):
+    """Every kernel's launches over Wan 1.3B runs of these host schedules
+    (as ``_wan_run``): D's short-key kernel takes every computed step's
+    cross-attention, the mainloop a dense step's self-attention."""
+    n_dense = sum(kinds.count("dense") for kinds in plans)
+    n_carved = sum(kinds.count("carved") for kinds in plans)
+    return {"block_sparse_attn": layers * n_carved,
+            "block_sparse_attn_members": 0,
+            "dense_attn": layers * (2 * n_dense + n_carved),
+            "dense_attn_short": layers * (n_dense + n_carved),
+            **NOT_SERVING}
+
+
+def _latents(path):
+    import numpy as np
+    lat = np.load(path)
+    if lat.shape != BATCH_SHAPE or not np.isfinite(lat).all() \
+            or not np.abs(lat).max() > 0:
+        fail(f"18a {os.path.basename(path)}: shape {lat.shape} (want "
+             f"{BATCH_SHAPE}), or not finite and non-zero")
+    return lat
+
+
+def phase_batch():
+    """Phase 18a: the CLI's batch and VBench paths at full width."""
+    import numpy as np
+    t0 = phase("18a. batches through the CLI: wan-t2v --prompt-file / "
+               "--vbench, Wan2.1-T2V-1.3B Base at 832x480x81f, 6 steps, "
+               "fresh processes")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        items = os.path.join(tmp, "items.json")
+        with open(items, "w") as f:
+            json.dump([{"prompt_en": "a dog runs on the beach", "id": 1},
+                       {"prompt_en": "city lights at night", "id": 2},
+                       {"prompt_en": "waves break on rocks", "id": 3}], f)
+        keep = os.path.join(tmp, "keep.json")
+        with open(keep, "w") as f:
+            json.dump([1, 3], f)
+        d = os.path.join(tmp, "batch")
+        argv = ["--prompt-file", items, "--remain-list", keep, "--out-dir",
+                d, *BATCH_SIZE]
+        _, rec = _batch_child(argv, "batch (2 of 3 items)")
+        names = sorted(os.listdir(d))
+        if len(names) != 2 or not all(
+                re.fullmatch(rf"000{i}_\d{{8}}-\d{{6}}_seed7_\w+\.npy", n)
+                for i, n in zip((1, 3), names)):
+            fail(f"18a batch wrote {names}, not 0001_ and 0003_"
+                 f"<YYYYMMDD-HHMMSS>_seed7_<slug>.npy")
+        lats = [_latents(os.path.join(d, n)) for n in names]
+        if len(rec["plans"]) != 2 or rec["plans"][0] != rec["plans"][1]:
+            fail(f"18a batch: schedules {rec['plans']}")
+        one = _scheduled(rec["plans"][:1])
+        want = {k: 2 * v for k, v in one.items()}
+        if rec["launches"] != want:
+            fail(f"18a batch launches {rec['launches']} != {want} (twice "
+                 f"one run's on schedule {rec['plans'][0]})")
+        # zero text states (no T5): both items at --seed give one result
+        print(f"   the two items' latents equal (zero text states, one "
+              f"seed): {bool(np.array_equal(*lats))}")
+        out["batch"] = {"launches": rec["launches"],
+                        "item_s": rec["item_s"], "schedule": rec["plans"][0],
+                        "files": names}
+
+        mtimes = {n: os.path.getmtime(os.path.join(d, n)) for n in names}
+        stdout, rec = _batch_child(argv, "batch again (resume)")
+        for i in (1, 3):
+            if f"[000{i}] exists, skipping" not in stdout:
+                fail(f"18a resume: no '[000{i}] exists, skipping' line")
+        if sorted(os.listdir(d)) != names or any(
+                os.path.getmtime(os.path.join(d, n)) != mtimes[n]
+                for n in names) or rec["plans"]:
+            fail("18a resume wrote or generated again")
+        out["resume"] = {"launches": rec["launches"]}
+
+        info = os.path.join(tmp, "full_info.json")
+        with open(info, "w") as f:
+            json.dump([{"prompt_en": VBENCH_PROMPT,
+                        "dimension": ["subject_consistency"]}], f)
+        v = os.path.join(tmp, "vbench")
+        _, rec = _batch_child(["--prompt-file", info, "--vbench",
+                               "--vbench-samples", "2", "--out-dir", v,
+                               *BATCH_SIZE], "vbench (1 prompt x 2)")
+        want_names = [f"{VBENCH_PROMPT}-{i}.npy" for i in range(2)]
+        if sorted(os.listdir(v)) != want_names:
+            fail(f"18a vbench wrote {sorted(os.listdir(v))}")
+        s0, s1 = (_latents(os.path.join(v, n)) for n in want_names)
+        if np.array_equal(s0, s1):
+            fail("18a vbench: samples 0 and 1 (seeds 7, 8) are equal")
+        if rec["launches"] != _scheduled(rec["plans"]) or \
+                len(rec["plans"]) != 2:
+            fail(f"18a vbench launches {rec['launches']} off its "
+                 f"schedules {rec['plans']}")
+        out["vbench"] = {"launches": rec["launches"],
+                         "item_s": rec["item_s"]}
+
+        single = os.path.join(tmp, "single.npy")
+        _, rec = _batch_child(["--prompt", VBENCH_PROMPT, "--save-path",
+                               single, *BATCH_SIZE], "single run, --seed 7")
+        one = _latents(single)
+        if rec["launches"] != _scheduled(rec["plans"]):
+            fail(f"18a single launches {rec['launches']} off its schedule")
+        if not np.array_equal(one, s0):
+            err = float(np.linalg.norm(one - s0) / np.linalg.norm(s0))
+            fail(f"18a: the single run at --seed 7 is not vbench sample 0 "
+                 f"bit for bit (relative L2 {err:.3e})")
+        out["single_seed"] = {"launches": rec["launches"],
+                              "item_s": rec["item_s"],
+                              "equal_to_sample_0": True}
+    out["gpu"] = gpu_line()
+    print(f"   vbench sample 0 == single run at --seed: bit for bit; gpu: "
+          f"{out['gpu']}")
+    done(t0)
+    return out
+
+
+# Qwen2.5-7B-Instruct's published shape (its config.json)
+QWEN25_7B = dict(vocab_size=152064, hidden_size=3584,
+                 intermediate_size=18944, num_layers=28, num_heads=28,
+                 num_kv_heads=4, rope_theta=1000000.0, rms_eps=1e-6,
+                 dtype="bfloat16")
+DECODE_REL_TOL = 2e-2   # 18b: bf16 GEMMs of 1 row vs of the whole stream
+
+
+def _decode_loop(model, cfg, ids, mask, steps, tokens=None):
+    """``llama_generate``'s loop (greedy, no EOS), keeping each step's
+    logits; ``tokens`` [B, steps] feeds given tokens instead of the
+    argmax. Returns (logits [steps + 1, B, vocab] f32, tokens, prefill s,
+    decode s)."""
+    import torch
+    from jenga_tpu_torch.text import llama as LM
+    max_len = ids.shape[1] + steps
+    cos, sin = LM._rope_tables(cfg, max_len, ids.device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache, lengths = LM.llama_prefill(model, cfg, ids, mask, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    pos, out, toks = lengths.long(), [logits], []
+    t = time.perf_counter()
+    for i in range(steps):
+        tok = logits.argmax(-1) if tokens is None else tokens[:, i]
+        toks.append(tok)
+        if i + 1 < steps:
+            logits, cache = LM.llama_decode_step(model, cfg, tok, pos, cache,
+                                                 cos, sin)
+            out.append(logits)
+            pos = pos + 1
+    torch.cuda.synchronize()
+    return (torch.stack(out), torch.stack(toks, 1), prefill_s,
+            time.perf_counter() - t)
+
+
+def phase_decode():
+    """Phase 18b: KV-cache decoding at Qwen2.5-7B-Instruct's width."""
+    import torch
+    from jenga_tpu_torch.text import llama as LM
+    _free()
+    t0 = phase("18b. KV-cache decoding at Qwen2.5-7B-Instruct's published "
+               "shape (28 layers, 3584 hidden, GQA 28/4, q/k/v biases, "
+               "untied head), seeded, bf16: 2 ragged prompts, 32 tokens")
+    cfg = LM.LlamaConfig(**QWEN25_7B)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ti = time.perf_counter()
+    model = LM.init_llama_(LM.Llama(cfg, "cuda", qkv_bias=True,
+                                    lm_head=True), gen)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for lin in (blk.q, blk.k, blk.v):
+                lin.b.normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    print(f"   model: {n_params} params, {weights_gib:.2f} GiB, init "
+          f"{time.perf_counter() - ti:.3f} s")
+    lens, steps = (180, 120), 32
+    ids = torch.randint(0, cfg.vocab_size, (2, max(lens)), generator=gen,
+                        device="cuda")
+    mask = torch.zeros_like(ids)
+    for i, n in enumerate(lens):
+        mask[i, :n] = 1
+    ids = ids * mask        # pad id 0 past each prompt
+    torch.cuda.reset_peak_memory_stats()
+    LM.llama_generate(model, cfg, ids, mask, max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gen_out = LM.llama_generate(model, cfg, ids, mask,
+                                max_new_tokens=steps)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    logits, toks, prefill_s, decode_s = _decode_loop(model, cfg, ids, mask,
+                                                     steps)
+    if toks.tolist() != gen_out:
+        fail("18b: llama_generate's tokens differ from its loop's")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_step = decode_s / (steps - 1) * 1e3
+    print(f"   llama_generate: {gen_s:.3f} s for 2 x {steps} tokens "
+          f"({2 * steps / gen_s:.1f} tokens/s); prefill {prefill_s * 1e3:.2f}"
+          f" ms (2 x {max(lens)} ids), {ms_step:.3f} ms per decode step "
+          f"({2 / ms_step * 1e3:.1f} tokens/s); peak {peak:.2f} GiB")
+    # (i) teacher-forced: each step's logits against the hidden states of
+    # the whole stream and the head, at that step's position
+    stream = torch.zeros((2, max(lens) + steps), dtype=ids.dtype,
+                         device="cuda")
+    smask = torch.zeros_like(stream)
+    for i, n in enumerate(lens):
+        stream[i, :n], stream[i, n:n + steps] = ids[i, :n], toks[i]
+        smask[i, :n + steps] = 1
+    with torch.no_grad():
+        h = LM.llama_hidden_states(model, cfg, stream, smask)[-1]
+        errs = []
+        for i, n in enumerate(lens):
+            ref = LM._logits(model, h[i, n - 1:n - 1 + steps])
+            errs.append(_rel(logits[:, i], ref))
+    # (ii) the shorter sample alone over the same tokens: the REPLACE
+    # trap at full width (its decode writes over the batch's pad entries)
+    n = lens[1]
+    solo, _, _, _ = _decode_loop(model, cfg, ids[1:, :n], mask[1:, :n],
+                                 steps, tokens=toks[1:])
+    ragged = _rel(logits[:, 1], solo[:, 0])
+    print(f"   relative L2, teacher-forced per sample: "
+          f"{[f'{e:.3e}' for e in errs]}; ragged sample vs solo: "
+          f"{ragged:.3e} (bound {DECODE_REL_TOL})")
+    if max(errs) > DECODE_REL_TOL or ragged > DECODE_REL_TOL:
+        fail(f"18b: decode logits off by {max(errs):.3e} (teacher-forced) "
+             f"/ {ragged:.3e} (ragged vs solo)")
+    if not torch.isfinite(logits).all():
+        fail("18b: non-finite logits")
+    out = {"params": n_params, "weights_gib": weights_gib,
+           "prefill_ms": prefill_s * 1e3, "ms_per_step": ms_step,
+           "tokens_per_s": 2 / ms_step * 1e3,
+           "generate_tokens_per_s": 2 * steps / gen_s, "peak_gib": peak,
+           "teacher_forced_rel": errs, "ragged_vs_solo_rel": ragged,
+           "prompt_lens": list(lens), "new_tokens": steps,
+           "gpu": gpu_line()}
+    print(f"   gpu: {out['gpu']}")
+    del model, h, logits, solo
+    _free()
+    done(t0)
+    return out
+
+
+EXPAND_TOL = 1e-4   # 18c: first-step logits, card vs CPU (f32, TF32 off)
+
+
+def _qwen2_lm_ref(cfg, seed=0) -> dict:
+    """Qwen2ForCausalLM's keys: q/k/v biases, no o bias, untied head."""
+    sd = _RefSd(seed)
+    d, kvd = cfg.hidden_size, cfg.num_kv_heads * cfg.head_dim
+    sd.add("model.embed_tokens.weight", cfg.vocab_size, d)
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}"
+        sd.add(f"{pre}.input_layernorm.weight", d)
+        sd.add(f"{pre}.post_attention_layernorm.weight", d)
+        for nm, o in (("q_proj", d), ("k_proj", kvd), ("v_proj", kvd)):
+            sd.lin(f"{pre}.self_attn.{nm}", d, o)
+        sd.lin(f"{pre}.self_attn.o_proj", d, d, bias=False)
+        for nm in ("gate_proj", "up_proj"):
+            sd.lin(f"{pre}.mlp.{nm}", d, cfg.intermediate_size, bias=False)
+        sd.lin(f"{pre}.mlp.down_proj", cfg.intermediate_size, d, bias=False)
+    sd.add("model.norm.weight", d)
+    sd.add("lm_head.weight", cfg.vocab_size, d)
+    return dict(sd)
+
+
+def _hf_text_config(cfg) -> dict:
+    return {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps}
+
+
+def _expand_run(exp, vl: bool, image):
+    """``PromptExpander`` over the expander: its text, the ids its
+    tokenizer decoded, and the first step's logits over the same
+    prompt."""
+    import torch
+    from jenga_tpu_torch.text import llama as LM
+    from jenga_tpu_torch.text import prompt_extend as PE
+    from jenga_tpu_torch.text.llava import llava_splice
+    text = PE.PromptExpander(chat_fn=exp, mode="vl" if vl else "t2v")(
+        PROMPT, image=image)
+    ids = exp.tok.decoded
+    tok_ids, mask = exp._ids(PE._chat_text(
+        exp.tok, PE.VL_EXTEND_SYSTEM_PROMPT if vl
+        else PE.T2V_EXTEND_SYSTEM_PROMPT,
+        f"<image>\n{PROMPT}" if vl else PROMPT))
+    with torch.inference_mode():
+        if vl:
+            pos = int(torch.nonzero(tok_ids[0] == exp.image_token_id)[0, 0])
+            emb, full = llava_splice(exp.model, tok_ids, mask,
+                                     exp._pixel_values(image), pos,
+                                     vision_cfg=exp.vision_cfg)
+            logits = LM.llama_prefill(exp.model.llm, exp.cfg, None, full,
+                                      full.shape[1] + 1,
+                                      inputs_embeds=emb)[0]
+        else:
+            logits = LM.llama_prefill(exp.model, exp.cfg, tok_ids, mask,
+                                      tok_ids.shape[1] + 1)[0]
+    return text, ids, logits
+
+
+def phase_expanders():
+    """Phase 18c: the local expanders' loaders on the card and the CPU."""
+    import numpy as np
+    import torch
+    from jenga_tpu_torch.text import prompt_extend as PE
+    from jenga_tpu_torch.text.llama import LlamaConfig
+    t0 = phase("18c. prompt expanders: small Qwen2-layout and llava "
+               "directories through LocalLLMExpander / LocalVLExpander, "
+               "card vs CPU, f32")
+    cfgs = small_configs()
+    qcfg = LlamaConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                       num_layers=3, num_heads=4, num_kv_heads=2,
+                       rope_theta=1000000.0, rms_eps=1e-6)
+    lcfg, vcfg = cfgs["llama"], cfgs["llava_vision"]
+    image = np.random.default_rng(18).uniform(0, 1, (3, 40, 56)).astype(
+        np.float32)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        qdir, vdir = os.path.join(tmp, "qwen2"), os.path.join(tmp, "llava")
+        os.makedirs(qdir)
+        os.makedirs(vdir)
+        write_safetensors(os.path.join(qdir, "model.safetensors"),
+                          _qwen2_lm_ref(qcfg, seed=31))
+        with open(os.path.join(qdir, "config.json"), "w") as f:
+            json.dump(_hf_text_config(qcfg), f)
+        write_safetensors(os.path.join(vdir, "model.safetensors"),
+                          hf_llava_ref(lcfg, vcfg, seed=32))
+        with open(os.path.join(vdir, "config.json"), "w") as f:
+            json.dump({"text_config": _hf_text_config(lcfg),
+                       "vision_config": {
+                           "image_size": vcfg.image_size,
+                           "patch_size": vcfg.patch_size,
+                           "hidden_size": vcfg.hidden_size,
+                           "intermediate_size": vcfg.intermediate_size,
+                           "num_hidden_layers": vcfg.num_layers,
+                           "num_attention_heads": vcfg.num_heads,
+                           "hidden_act": vcfg.act},
+                       "image_token_index": 500}, f)
+        for name, cls, path, vocab in (
+                ("llm", PE.LocalLLMExpander, qdir, qcfg.vocab_size),
+                ("vl", PE.LocalVLExpander, vdir, lcfg.vocab_size)):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                exp = cls(path, max_new_tokens=12, dtype="float32",
+                          device=dev)
+                exp.tok = StandInTokenizer(vocab, 0, image_id=500)
+                blk = (exp.model.llm if name == "vl" else exp.model).blocks[0]
+                if name == "llm" and (blk.q.b is None or blk.o.b is not None
+                                      or exp.cfg.rope_theta != 1e6):
+                    fail("18c: the Qwen2 directory loaded without its q/k/v "
+                         "biases, with an o bias, or off its rope_theta")
+                _placed(f"18c {name} on {dev}", exp.model, dev)
+                runs[dev] = _expand_run(exp, name == "vl",
+                                        image if name == "vl" else None)
+            (text, ids, logits), (ctext, cids, clogits) = (runs["cuda"],
+                                                           runs["cpu"])
+            err = _rel(logits, clogits)
+            print(f"   {name}: {len(ids)} ids {ids}; card == CPU: "
+                  f"{ids == cids}; first-step logits relative L2 "
+                  f"{err:.3e} (bound {EXPAND_TOL}); text {text[:60]!r}")
+            if ids != cids or text != ctext:
+                fail(f"18c {name}: the card's ids {ids} differ from the "
+                     f"CPU's {cids}")
+            if err > EXPAND_TOL:
+                fail(f"18c {name}: first-step logits off by {err:.3e}")
+            if not text or text != StandInTokenizer(vocab, 0).decode(ids):
+                fail(f"18c {name}: PromptExpander returned {text!r}, not "
+                     f"the decoded ids")
+            out[name] = {"ids": ids, "logits_rel": err}
+    done(t0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4008,6 +4475,9 @@ def main():
     train = phase_train_wan()
     train_hy = phase_train_hy_i2v()
     sp = phase_sp()
+    batch = phase_batch()
+    decode = phase_decode()
+    expanders = phase_expanders()
     loaded = sorted(m for m in sys.modules if m in ("jax", "jenga_tpu")
                     or m.startswith(("jax.", "jenga_tpu.")))
     if loaded:
@@ -4034,7 +4504,10 @@ def main():
             "sp_hyvideo_t2v_world1": sp["17a_hy"]["launches"],
             "sp_wan_t2v_1.3b_world1": sp["17b_wan"]["launches"],
             "sp_ring_hy_joint_world1": sp["17c_ring"]["launches"],
-            "sp_wan_t2v_1.3b_gloo_sp2": sp["17e_wan_gloo_sp2"]["launches"]}
+            "sp_wan_t2v_1.3b_gloo_sp2": sp["17e_wan_gloo_sp2"]["launches"],
+            "wan_t2v_1.3b_batch": batch["batch"]["launches"],
+            "wan_t2v_1.3b_vbench": batch["vbench"]["launches"],
+            "wan_t2v_1.3b_single_seed": batch["single_seed"]["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -4167,6 +4640,8 @@ def main():
     print("train: " + json.dumps({"16_wan_1.3b": train,
                                   "16b_hyvideo_i2v": train_hy}))
     print("sp: " + json.dumps(sp))
+    print("batch: " + json.dumps({"18a_batch": batch, "18b_decode": decode,
+                                  "18c_expanders": expanders}))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

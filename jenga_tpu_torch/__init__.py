@@ -8,12 +8,16 @@ runs on two hand-written sm_90a CUDA kernels, block-sparse
 other op is plain PyTorch, among them the two video VAEs (``codec/``:
 HunyuanVideo's tiled causal 3-D VAE, Wan2.1's streamed frame by frame)
 and the text and image encoders (``text/``). ``convert/`` loads the
-reference's checkpoint directories (``from_pretrained``).
+reference's checkpoint directories (``from_pretrained``). The CLI runs
+prompt lists and VBench batches with resume (``batch.py``) and extends
+prompts with a local LM or llava decoded through a KV cache, or a chat
+API (``text/prompt_extend.py``): with these the port does all that the
+JAX package does, less the TPU-only modules ``ROADMAP.md`` lists.
 The probe tools (``tools/``) time four more hand-written kernels
 (``csrc/attn_probe.cu``, ``csrc/block_pool.cu``,
 ``csrc/cross_attn_resident.cu``) that no main path runs. The numpy-only
-host modules (curves, skip schedules, option validation, video output)
-are copies of the JAX package's, held equal to them by the tests: this
+host modules (curves, skip schedules, option validation, video output,
+logging, batching) are copies of the JAX package's, held equal to them by the tests: this
 package imports neither JAX nor ``jenga_tpu``.
 """
 

@@ -16,6 +16,12 @@ Usage:
       --save-path out.npy
   python -m jenga_tpu_torch.cli wan-t2v --sample-solver dpm++ --latents-only
   python -m jenga_tpu_torch.cli wan-i2v --max-area 399360 --latents-only
+  python -m jenga_tpu_torch.cli wan-t2v --prompt-file prompts.json \
+      --remain-list keep.json --out-dir outputs --latents-only
+  python -m jenga_tpu_torch.cli wan-t2v --prompt-file full_info.json \
+      --vbench --vbench-samples 5 --vbench-dimension scene --out-dir videos
+  python -m jenga_tpu_torch.cli wan-t2v --prompt "a cat" \
+      --prompt-extend-model /path/to/Qwen2.5-7B-Instruct --ckpt-dir ...
 
 HunyuanVideo presets: base, turbo, flash, 3stage, accvideo (the last four
 switch resolution between stages, ProRes); ``hyvideo-i2v`` takes base.
@@ -51,6 +57,30 @@ prints the JSON line:
 
   torchrun --nproc-per-node 4 -m jenga_tpu_torch.cli wan-t2v \
       --latents-only --ulysses-degree 4
+
+Batches (``hyvideo-t2v`` and ``wan-t2v``, as in the JAX CLI):
+``--prompt-file`` names a VBench-style JSON list (``prompt_en`` and
+``id``) or a text file of one prompt per line; ``--remain-list`` keeps
+the ids of a JSON list, ``--chunk-num``/``--cur-id`` take every
+chunk-num-th prompt from cur-id on (one share per host). Each prompt is
+generated at ``--seed`` and written to ``--out-dir`` as
+``{id}_<YYYYMMDD-HHMMSS>_seed<seed>_<slug>`` (``.npy`` with
+``--latents-only``); a prompt whose id already has such a file is
+skipped, so a cut run resumes. ``--vbench`` reads ``--prompt-file`` as
+VBench's ``full_info.json`` (``--vbench-dimension`` keeps one dimension)
+and writes ``{prompt}-{i}`` for i < ``--vbench-samples`` at seed
+``--seed + i``, skipping the files that exist. A batch prints no
+``gen_time_s`` line. Under torchrun every rank runs every generation
+and only rank 0 writes.
+
+Prompt extension (all four commands, before the prompt is encoded):
+``--prompt-extend-model`` names a local HF llama/Qwen2 directory loaded
+on ``--device`` (``text.prompt_extend.LocalLLMExpander``; with
+``--prompt-extend-mode vl`` a llava directory that sees the command's
+image), ``--prompt-extend-method api`` posts to an OpenAI/DashScope-style
+endpoint instead (``PROMPT_EXTEND_API_URL``, ``DASH_API_KEY``);
+``--prompt-extend-mode`` picks the system prompt. The local expanders
+tokenize with ``transformers``.
 
 ``hyvideo-i2v --i2v-image-path`` loads the image and, without
 ``--video-size``, buckets the video size by its aspect at
@@ -124,6 +154,43 @@ def _common(p: argparse.ArgumentParser):
                         "ulysses_degree ranks (dense attention only — "
                         "carving needs --ring-degree 1; the reference's "
                         "world == ring x ulysses contract)")
+    p.add_argument("--prompt-file", type=str, default=None,
+                   help="JSON (VBench prompt_en/id) or txt prompt list "
+                        "(T2V commands)")
+    p.add_argument("--remain-list", type=str, default=None,
+                   help="JSON list of ids to (re-)generate (resume filter)")
+    p.add_argument("--chunk-num", type=int, default=1,
+                   help="shard the prompt list across this many hosts")
+    p.add_argument("--cur-id", type=int, default=0,
+                   help="this host's shard index")
+    p.add_argument("--out-dir", type=str, default="outputs",
+                   help="directory for id-stamped batch outputs")
+    p.add_argument("--vbench", action="store_true",
+                   help="treat --prompt-file as a VBench full_info.json and "
+                        "emit the evaluation protocol's naming: "
+                        "{prompt}-{i}.mp4, --vbench-samples per prompt")
+    p.add_argument("--vbench-samples", type=int, default=5,
+                   help="samples per prompt under --vbench (protocol: 5)")
+    p.add_argument("--vbench-dimension", type=str, default=None,
+                   help="only generate prompts tagged with this VBench "
+                        "dimension")
+    p.add_argument("--prompt-extend-model", type=str, default=None,
+                   help="HF dir of a llama/Qwen2 LM used to expand the "
+                        "prompt before encoding (reference "
+                        "--use_prompt_extend)")
+    p.add_argument("--prompt-extend-mode", default="t2v",
+                   choices=["t2v", "i2v", "vl", "rewrite", "master"],
+                   help="'vl' loads a llava-format dir and grounds the "
+                        "expansion in the conditioning image "
+                        "(--i2v-image-path / --image)")
+    p.add_argument("--prompt-extend-method", default="local",
+                   choices=["local", "api"],
+                   help="'api' posts to an OpenAI/DashScope-compatible "
+                        "chat endpoint (env DASH_API_KEY, "
+                        "PROMPT_EXTEND_API_URL) instead of loading a "
+                        "local model")
+    p.add_argument("--prompt-extend-api-model", default="qwen-plus",
+                   help="remote model name for --prompt-extend-method api")
 
 
 def _offload(p: argparse.ArgumentParser):
@@ -247,6 +314,96 @@ def _save(args, out, t0):
     _save_output(args.save_path, out.numpy(), args.latents_only)
 
 
+def _maybe_extend_prompt(args, prompt):
+    """``prompt`` through the expander the ``--prompt-extend-*`` flags
+    name (a local LM or llava dir on ``--device``, or the API), else as
+    it is. ``vl`` needs the command's image."""
+    use_api = args.prompt_extend_method == "api"
+    if not args.prompt_extend_model and not use_api:
+        return prompt
+    from .text.prompt_extend import (APIExpander, LocalLLMExpander,
+                                     LocalVLExpander, PromptExpander)
+    if args.prompt_extend_mode == "vl":
+        image = getattr(args, "i2v_image_path", None) \
+            or getattr(args, "image", None)
+        if not image:
+            raise SystemExit("--prompt-extend-mode vl needs an input "
+                             "image (--i2v-image-path / --image)")
+        chat = (APIExpander(model=args.prompt_extend_api_model) if use_api
+                else LocalVLExpander(args.prompt_extend_model,
+                                     device=args.device))
+        expander = PromptExpander(chat_fn=chat, mode="vl")
+        extended = expander(prompt, image=image)
+    else:
+        chat = (APIExpander(model=args.prompt_extend_api_model) if use_api
+                else LocalLLMExpander(args.prompt_extend_model,
+                                      device=args.device))
+        expander = PromptExpander(chat_fn=chat,
+                                  mode=args.prompt_extend_mode)
+        extended = expander(prompt)
+    print(f"extended prompt: {extended}")
+    return extended
+
+
+def _batch_io(args):
+    """(save_fn, log) of a batch: rank 0 writes and logs. Under several
+    ranks the write sits between two barriers: the first holds it until
+    every rank has taken this item's skip decision, the second holds
+    every rank until it is on disk. So no write falls while any rank
+    looks at the shared ``--out-dir``, and all take the same decisions.
+    The second barrier is reached also when rank 0's write raises
+    (``run_batch`` logs that and goes on)."""
+    import torch.distributed as dist
+    rank = _rank()
+
+    def save(path, out):
+        sync = dist.is_initialized() and dist.get_world_size() > 1
+        if sync:
+            dist.barrier()
+        try:
+            out = out.cpu()     # waits for the device
+            if rank == 0:
+                _save_output(path, out.numpy(), args.latents_only)
+        finally:
+            if sync:
+                dist.barrier()
+
+    return save, (print if rank == 0 else (lambda *a, **k: None))
+
+
+def _maybe_run_batch(args, generate_fn):
+    """With ``--prompt-file``, run the batch and return True: the
+    reference's id-stamped naming with resume (``batch.run_batch``), or
+    with ``--vbench`` the VBench protocol (``{prompt}-{i}`` names,
+    ``--vbench-samples`` per prompt at ``--seed + i``). Every rank runs
+    every generation; only rank 0 writes."""
+    if not args.prompt_file:
+        return False
+    suffix = ".npy" if args.latents_only else ".mp4"
+    save, log = _batch_io(args)
+    if args.vbench:
+        from .batch import load_vbench_info, run_vbench_batch
+        infos = load_vbench_info(args.prompt_file,
+                                 dimension=args.vbench_dimension,
+                                 chunk_num=args.chunk_num,
+                                 cur_id=args.cur_id)
+        log(f"vbench: {len(infos)} prompts x {args.vbench_samples} "
+            f"samples (shard {args.cur_id}/{args.chunk_num})")
+        run_vbench_batch(
+            infos, lambda p, s: generate_fn(p, seed=s), save, args.out_dir,
+            samples_per_prompt=args.vbench_samples, suffix=suffix, log=log,
+            seed=args.seed)
+        return True
+    from .batch import load_prompt_list, run_batch
+    items = load_prompt_list(args.prompt_file, args.remain_list,
+                             args.chunk_num, args.cur_id)
+    log(f"batch: {len(items)} prompts "
+        f"(shard {args.cur_id}/{args.chunk_num})")
+    run_batch(items, generate_fn, save, args.out_dir, suffix=suffix,
+              log=log, seed=args.seed)
+    return True
+
+
 def _sp(args) -> dict:
     return dict(sp_degree=args.ulysses_degree, ring_degree=args.ring_degree)
 
@@ -310,14 +467,21 @@ def _hy_sampler(args, i2v: bool = False, cond: str = "token_replace"):
 def run_hyvideo_t2v(args):
     opts = hy_t2v_options(args)
     sampler = _hy_sampler(args)
+
+    def gen(prompt, seed=None):
+        o = opts if seed is None else dataclasses.replace(opts, seed=seed)
+        if sampler.text_encoder is not None:
+            return sampler.predict_prompt(prompt, o,
+                                          negative_prompt=args.neg_prompt,
+                                          decode=not args.latents_only)
+        # no encoder checkpoints: zero embeddings (smoke mode)
+        return sampler.predict(*_zero_hy_text(sampler.cfg, sampler.TEXT_LEN),
+                               o, decode=not args.latents_only)
+
+    if _maybe_run_batch(args, gen):
+        return
     t0 = time.time()
-    if sampler.text_encoder is not None:
-        out = sampler.predict_prompt(args.prompt, opts,
-                                     negative_prompt=args.neg_prompt,
-                                     decode=not args.latents_only)
-    else:   # no encoder checkpoints: zero embeddings (smoke mode)
-        out = sampler.predict(*_zero_hy_text(sampler.cfg, sampler.TEXT_LEN),
-                              opts, decode=not args.latents_only)
+    out = gen(_maybe_extend_prompt(args, args.prompt))
     _save(args, out, t0)
 
 
@@ -367,18 +531,18 @@ def hy_i2v_image_latents(args, sampler, opts, image=None):
                   for lat, _ in shapes]
 
 
-def hy_i2v_text(args, sampler, image):
+def hy_i2v_text(args, sampler, image, prompt):
     """The I2V text states by the JAX CLI's rule: with a llava encoder and
-    an image, the prompt encoded with the image; with another encoder, in
+    an image, ``prompt`` encoded with the image; with another encoder, in
     image mode; without one, zeros."""
     from .text.llava import Llava
     if sampler.text_encoder is None:
         return _zero_hy_text(sampler.cfg, sampler.TEXT_LEN)
     if image is not None and isinstance(sampler.text_encoder[2], Llava):
         return sampler.encode_prompt_i2v(
-            args.prompt, image, mode="video",
+            prompt, image, mode="video",
             i2v_condition_type=args.i2v_condition_type)
-    return sampler.encode_prompt(args.prompt, mode="image")
+    return sampler.encode_prompt(prompt, mode="image")
 
 
 def run_hyvideo_i2v(args):
@@ -392,7 +556,8 @@ def run_hyvideo_i2v(args):
         from .runtime import load_image
         image = load_image(args.i2v_image_path)
     opts, image_latents = hy_i2v_image_latents(args, sampler, opts, image)
-    text = hy_i2v_text(args, sampler, image)
+    text = hy_i2v_text(args, sampler, image,
+                       _maybe_extend_prompt(args, args.prompt))
     t0 = time.time()
     _save(args, sampler.predict_i2v(image_latents, *text, opts,
                                     decode=not args.latents_only), t0)
@@ -457,15 +622,22 @@ def run_wan_t2v(args):
 
     opts = wan_t2v_options(args)
     sampler = _wan_sampler(args, wan_t2v_task(args))
-    t0 = time.time()
-    if sampler.t5 is not None:
-        out = sampler.generate_prompt(args.prompt, opts,
-                                      negative_prompt=args.neg_prompt or "",
-                                      decode=not args.latents_only)
-    else:   # no T5 checkpoint: zero embeddings (smoke mode)
+
+    def gen(prompt, seed=None):
+        o = opts if seed is None else dataclasses.replace(opts, seed=seed)
+        if sampler.t5 is not None:
+            return sampler.generate_prompt(
+                prompt, o, negative_prompt=args.neg_prompt or "",
+                decode=not args.latents_only)
+        # no T5 checkpoint: zero embeddings (smoke mode)
         ctx = np.zeros((64, sampler.cfg.text_dim), np.float32)
-        out = sampler.generate(ctx, np.zeros_like(ctx), opts,
-                               decode=not args.latents_only)
+        return sampler.generate(ctx, np.zeros_like(ctx), o,
+                                decode=not args.latents_only)
+
+    if _maybe_run_batch(args, gen):
+        return
+    t0 = time.time()
+    out = gen(_maybe_extend_prompt(args, args.prompt))
     _save(args, out, t0)
 
 
@@ -517,7 +689,8 @@ def run_wan_i2v(args):
     t0 = time.time()
     if args.image and sampler.t5 is not None:
         from .runtime import load_image
-        out = sampler.generate_image(load_image(args.image), args.prompt,
+        out = sampler.generate_image(load_image(args.image),
+                                     _maybe_extend_prompt(args, args.prompt),
                                      opts,
                                      negative_prompt=args.neg_prompt or "",
                                      decode=not args.latents_only)
@@ -535,7 +708,12 @@ def run_wan_i2v(args):
 
 
 def main(argv=None):
+    import os
+
+    from .utils.logging import get_logger, log_args
     args = build_parser().parse_args(argv)
+    # the rank from torchrun's environment: logging needs no process group
+    log_args(get_logger(rank=int(os.environ.get("RANK", "0"))), args)
     {"hyvideo-t2v": run_hyvideo_t2v, "hyvideo-i2v": run_hyvideo_i2v,
      "wan-t2v": run_wan_t2v, "wan-i2v": run_wan_i2v}[args.cmd](args)
 

@@ -298,20 +298,18 @@ class HunyuanVideoSampler:
         from .convert import encoders as E
         from .text import HFTokenizerAdapter
         from .text.clip import CLIP_L_VISION_336
-        from .text.llama import Llama
+        from .text.llama import Llama, bias_flags
         from .text.llava import Llava
         cfg = cls._llama_cfg_from_dir(path)
         tok = HFTokenizerAdapter(path, max_length=cls.TEXT_LEN)
         if any("vision_tower" in k for k in sd):
             tree = E.convert_llava(sd, cfg, CLIP_L_VISION_336)
             make = lambda dev: Llava(  # noqa: E731
-                cfg, CLIP_L_VISION_336, dev, bias="llm.blocks.0.q.b" in tree,
-                lm_head="llm.lm_head.w" in tree)
+                cfg, CLIP_L_VISION_336, dev, **bias_flags(tree, "llm."))
         else:
             tree = E.convert_llama(sd, cfg)
             make = lambda dev: Llama(  # noqa: E731
-                cfg, dev, bias="blocks.0.q.b" in tree,
-                lm_head="lm_head.w" in tree)
+                cfg, dev, **bias_flags(tree))
         del sd
         return (tok, cfg, _load_module(make, tree, device))
 

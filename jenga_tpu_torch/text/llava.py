@@ -63,17 +63,19 @@ I2V_TEMPLATE_INFO = {
 
 class Llava(nn.Module):
     """``vision`` (CLIPVision), ``projector`` (``fc1``, ``fc2``) and
-    ``llm`` (Llama)."""
+    ``llm`` (Llama, whose ``qkv_bias``/``o_bias``/``lm_head`` it
+    takes)."""
 
     def __init__(self, llm_cfg: LlamaConfig, vision_cfg=CLIP_L_VISION_336,
-                 device="cpu", dtype=None, bias: bool = False,
-                 lm_head: bool = False):
+                 device="cpu", dtype=None, qkv_bias: bool = False,
+                 o_bias: bool = False, lm_head: bool = False):
         super().__init__()
         self.vision = CLIPVision(vision_cfg, device, dtype)
         dt = self.vision.pos_embed.dtype
         self.projector = L.MLP(vision_cfg.hidden_size, llm_cfg.hidden_size,
                                llm_cfg.hidden_size, dt, device)
-        self.llm = Llama(llm_cfg, device, dtype, bias=bias, lm_head=lm_head)
+        self.llm = Llama(llm_cfg, device, dtype, qkv_bias=qkv_bias,
+                         o_bias=o_bias, lm_head=lm_head)
 
 
 @torch.no_grad()

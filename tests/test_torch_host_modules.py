@@ -33,7 +33,7 @@ from jenga_tpu_torch.diffusion import skip as pt_skip
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = ["curves/gilbert.py", "curves/blocks.py", "diffusion/skip.py",
           "configs/validate.py", "utils/video.py", "train/dataset.py",
-          "utils/logging.py"]
+          "utils/logging.py", "batch.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
