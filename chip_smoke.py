@@ -57,7 +57,8 @@ result line):
      q (one short-key call a pair, no copy, [B, S, H, D] gradients): each
      gradient within 2e-2 relative L2 and its max abs error within 1e-2 of
      its largest element; each kernel, the call and the plain backward
-     timed beside their bounds and the SDPA (flash) backward;
+     timed beside their bounds and the SDPA backward (flash; with kv_len
+     the efficient backend with a boolean key mask);
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
@@ -282,6 +283,24 @@ result line):
      (f32) with the stand-in tokenizer in their slot: equal generated ids,
      first-step logits within 1e-4 relative L2, ``PromptExpander``
      returning the decoded text. A ``batch:`` line gathers phase 18.
+  19. the first-block selection diagnostics and causal dense attention.
+     (19a, on phase 3's model after 3b) ``hy_first_selection_mask`` at
+     1280x720x33f (joint q8, drop 0.75, seeded latents and text):
+     [1, 24, 254, 256], equal to the mask the first double block hands
+     the carved dispatch in one forward of the whole model on the same
+     inputs (its 2 text rows all True), no kernel launched by the
+     diagnostic, K1 60 times by the forward; (19b, on phase 4's model
+     after 4b) ``wan_first_selection_mask`` at 832x480x81f (CFG batch 2,
+     first_frame_blocks 12) against the first of the forward's 30 masks,
+     K1 and D 30 times; each prints the density and (HunyuanVideo) the
+     union fraction of 8-row groups beside the JAX bench's 0.2762, which
+     its aligned q/k init gives: the seeded init here selects near dense.
+     (19c) ``dense_attention(causal=True)`` in bf16 on the card (q 2 x 8
+     x 777, k 1024 keys, head dim 128, kv_len [0, 900]) against the same
+     call on the CPU: each output element within one bf16 ulp or 1e-4
+     (f32 sums in another order), the gradients within 1e-2 relative L2,
+     the empty sample all zeros, no kernel launched. A ``selection:``
+     line gathers phase 19.
 No module of jax or jenga_tpu may be loaded. The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
 """
@@ -681,13 +700,24 @@ def _bshd_case(name, q, pairs):
     return rec
 
 
-def _sdpa_bwd_ms(q, k, v, do):
-    """ms of the SDPA (flash) backward alone on the same operands: dq, dk
-    and dv from one retained graph. A yardstick only, never on the path."""
+def _sdpa_bwd_ms(q, k, v, do, kv_len=None):
+    """ms of the SDPA backward alone on the same operands: dq, dk and dv
+    from one retained graph; on the flash backend, or with ``kv_len`` (a
+    per-sample key length, which flash cannot take) on the efficient
+    backend with the boolean key mask [B, 1, 1, Skv]. A yardstick only,
+    never on the path."""
     import torch
     from jenga_tpu_torch.tools.library_baseline import sdpa_flash
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    out = sdpa_flash(qg, kg, vg)
+    if kv_len is None:
+        out = sdpa_flash(qg, kg, vg)
+    else:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        keep = (torch.arange(k.shape[2], device=k.device)[None]
+                < kv_len[:, None].long())[:, None, None]
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=keep)
     return time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), 10)
 
@@ -741,8 +771,9 @@ def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
     events; up to 512 keys the short-key call's kernels by their device
     time, the chunks' sum counted with dK|dV) and of the pair through the
     wrapper (with di and, over 512 keys, the padded statistics), the plain
-    backward's ms, the bounds, and the SDPA backward's ms where SDPA takes
-    the case (no per-sample key length). The record's ``route`` is the one
+    backward's ms, the bounds, and the SDPA backward's ms (with a
+    per-sample key length on the efficient backend, with a boolean key
+    mask). The record's ``route`` is the one
     the counters show, which must be ``dense_route(Skv)``."""
     import torch
     from jenga_tpu_torch.ops import flash_attention as fa
@@ -814,8 +845,9 @@ def _dense_bwd_case(name, gen, q, k, v, kv_len=None):
             2.0 * gemms * pairs, 2 * tensors)
     rec["bound_ms"], rec["bound_by"] = rec["pair_bound_ms"], \
         rec["pair_bound_by"]
-    rec["library_ms"] = (None if kv_len is not None else
-                         _sdpa_bwd_ms(q, k, v, do))
+    rec["library_ms"] = _sdpa_bwd_ms(q, k, v, do, kv_len)
+    rec["library_of"] = ("SDPA (flash) backward" if kv_len is None else
+                         "SDPA (efficient) backward, boolean key mask")
     print(f"   {json.dumps(rec)}", flush=True)
     _check_bwd_errors(name, errs)
     if took != fa.dense_route(skv):
@@ -1382,6 +1414,7 @@ def phase_hy_main_path():
             "peak_gib": peak, "latents": lat.cpu()}
     del lat
     turbo = phase_hy_turbo(sampler, txt, mask, txt2)
+    turbo["selection"] = phase_selection_hy(sampler, txt, mask, txt2)
     # phase 8 holds the e4m3 bytes its sampler quantizes from the same
     # seeded init against the CPU's quantization of these bf16 weights
     ref = {name: sampler.model.get_submodule(name).w.cpu()
@@ -1541,10 +1574,198 @@ def phase_wan_main_path():
           f"turbo_switch_step={opts.turbo_switch_step}: schedule {kinds}")
     turbo = _wan_run(sampler, opts, kinds, ctx, null)
     turbo["switch"] = opts.turbo_switch_step
+    done(t0)
+    turbo["selection"] = phase_selection_wan(sampler, ctx, null)
     del sampler
     torch.cuda.empty_cache()
-    done(t0)
     return base, turbo
+
+
+SEL_JAX_DENSITY = 0.2762    # BENCH_r05.json: the JAX bench's first-block
+                            # density (and q4_union_frac), HY 720p x 125f
+
+
+def _selection(label, diagnose, forward, video_rows, expect):
+    """Phase 19a/19b: the diagnostic's mask (no launch) against the first
+    planner mask of one carved forward on the same inputs (launches as
+    ``expect``); returns its record."""
+    import torch
+    masks = []
+    with torch.inference_mode():
+        with _Launches() as quiet:
+            first_call = diagnose()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            got = diagnose()
+            torch.cuda.synchronize()
+            diag_ms = (time.perf_counter() - ts) * 1e3
+        with _recorded_masks(masks), _Launches() as run:
+            out = forward()
+            torch.cuda.synchronize()
+    if any(quiet.counts.values()):
+        fail(f"{label}: the diagnostic launched kernels: {quiet.counts}")
+    if run.counts != expect:
+        fail(f"{label}: the forward's launches {run.counts} != {expect}")
+    if not torch.isfinite(out).all():
+        fail(f"{label}: the forward's output is not finite")
+    first = masks[0]
+    rows = got.shape[2]
+    same = (torch.equal(got, first_call) and got.dtype == torch.bool
+            and tuple(got.shape)
+            == (*first.shape[:2], video_rows, first.shape[3])
+            and torch.equal(got, first[:, :, :rows])
+            and bool(first[:, :, rows:].all()))
+    print(f"   {label}: mask {tuple(got.shape)} in {diag_ms:.2f} ms (a "
+          f"second call); equal "
+          f"to the first of the forward's {len(masks)} planner masks: "
+          f"{same}; forward launches {run.counts}")
+    if not same:
+        fail(f"{label}: the diagnostic's mask differs from the first "
+             f"block's in the carved forward")
+    return got, {"shape": list(got.shape), "diag_ms": diag_ms,
+                 "launches": run.counts, "masks_in_forward": len(masks)}
+
+
+def _union_frac(mask, group: int) -> float:
+    """The JAX bench's union fraction: per group of ``group`` query rows
+    (a ragged tail dropped), the share of key blocks any row selects."""
+    b, h, nq, nk = mask.shape
+    nq_t = nq // group * group
+    g = mask[:, :, :nq_t].reshape(b, h, nq_t // group, group, nk)
+    return g.any(dim=3).float().mean().item()
+
+
+def phase_selection_hy(sampler, txt, mask, txt2):
+    import torch
+    from jenga_tpu_torch.configs.presets import get_hy_preset
+    from jenga_tpu_torch.models.hyvideo import (hy_first_selection_mask,
+                                                make_hy_carve)
+    t0 = phase("19a. first-block selection diagnostic: HunyuanVideo "
+               "1280x720x33f, full width (phase 3's model)")
+    cfg, model = sampler.cfg, sampler.model
+    opts = get_hy_preset("base", size=(1280, 720), video_length=33)
+    carve = make_hy_carve(cfg, (9, 45, 80), opts.sa_drop_rates[0],
+                          opts.p_remain, curve=opts.curve,
+                          txt_block_num=opts.txt_block_num,
+                          q_rows=opts.q_group, joint_sel=opts.joint_sel,
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((1, cfg.out_channels, 9, 90, 160), generator=gen,
+                    device="cuda")
+    t = torch.full((1,), 900.0, device="cuda")
+    g = torch.full((1,), 6000.0, device="cuda")
+    args = (x, t, txt[None], mask[None], txt2[None])
+    blocks = cfg.double_blocks + cfg.single_blocks
+    sel, rec = _selection(
+        "HunyuanVideo", lambda: hy_first_selection_mask(
+            model, *args, carve, guidance=g),
+        lambda: model(*args, carve=carve, guidance=g),
+        -(-(32400 + txt.shape[0]) // 128) - opts.txt_block_num,
+        {"block_sparse_attn": blocks, "block_sparse_attn_members": 0,
+         "dense_attn": 0, "dense_attn_short": 0, **NOT_SERVING})
+    group = max(2, opts.q_group)
+    rec.update(density=sel.float().mean().item(),
+               q4_union_frac=_union_frac(sel, group), union_group=group)
+    print(f"   density {rec['density']:.4f}, union fraction of {group}-row "
+          f"groups {rec['q4_union_frac']:.4f}; the JAX bench "
+          f"(BENCH_r05.json) {SEL_JAX_DENSITY} and {SEL_JAX_DENSITY} under "
+          f"its aligned q/k init at 125f: the seeded init here selects "
+          f"near dense, so these are no production density")
+    done(t0)
+    return rec
+
+
+def phase_selection_wan(sampler, ctx, null):
+    import torch
+    from jenga_tpu_torch.configs.presets import get_wan_preset
+    from jenga_tpu_torch.models.wan import (make_wan_carve,
+                                            wan_first_selection_mask)
+    t0 = phase("19b. first-block selection diagnostic: Wan2.1 T2V 1.3B "
+               "832x480x81f, full width (phase 4's model)")
+    cfg, model = sampler.cfg, sampler.model
+    opts = get_wan_preset("1.3b-base", size=(832, 480), frame_num=81)
+    carve = make_wan_carve(cfg, WAN_GRID, opts.sa_drop_rates[0],
+                           opts.p_remain, curve=opts.curve,
+                           q_rows=opts.q_group, joint_sel=opts.joint_sel,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((1, cfg.out_dim, 21, 60, 104), generator=gen,
+                    device="cuda").expand(2, -1, -1, -1, -1)
+    t = torch.full((2,), 900.0, device="cuda")
+    ctx2 = sampler.pipeline._context2(ctx, null)
+    layers = cfg.num_layers
+    sel, rec = _selection(
+        "Wan", lambda: wan_first_selection_mask(model, x, t, ctx2, carve),
+        lambda: model(x, t, ctx2, carve=carve), 256,
+        {"block_sparse_attn": layers, "block_sparse_attn_members": 0,
+         "dense_attn": layers, "dense_attn_short": layers, **NOT_SERVING})
+    rec.update(density=sel.float().mean().item(),
+               first_frame_blocks=carve.first_frame_blocks)
+    print(f"   density {rec['density']:.4f} (first_frame_blocks "
+          f"{carve.first_frame_blocks}); the JAX bench's HunyuanVideo "
+          f"density {SEL_JAX_DENSITY} under its aligned q/k init: the "
+          f"seeded init here selects near dense")
+    done(t0)
+    return rec
+
+
+# 19c, card vs CPU: the output within one bf16 ulp of the CPU's or
+# CAUSAL_ABS_TOL (both sum the same f32 products in another order: a
+# near-zero element can move by more ulps of its own), the gradients
+# within CAUSAL_REL_TOL relative L2
+CAUSAL_ABS_TOL = 1e-4
+CAUSAL_REL_TOL = 1e-2
+
+
+def _bf16_ulp(b):
+    """One bf16 ulp of each element of f32 tensor ``b``."""
+    import torch
+    mag = b.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_causal():
+    import torch
+    from jenga_tpu_torch.ops.flash_attention import dense_attention
+    t0 = phase("19c. dense_attention(causal=True), bf16 on the card vs the "
+               "same call on the CPU")
+    gen = torch.Generator().manual_seed(19)
+    q, k, v = (torch.randn(s, generator=gen).to(torch.bfloat16)
+               for s in ((2, 8, 777, 128), (2, 8, 1024, 128),
+                         (2, 8, 1024, 128)))
+    do = torch.randn((2, 8, 777, 128), generator=gen).to(torch.bfloat16)
+    kv_len = torch.tensor([0, 900])
+
+    def run(device):
+        xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        out = dense_attention(*xs, causal=True, kv_len=kv_len.to(device))
+        out.backward(do.to(device))
+        return [y.detach().float().cpu() for y in [out] + [x.grad
+                                                           for x in xs]]
+
+    with _Launches() as run_counts:
+        card = run("cuda")
+        torch.cuda.synchronize()
+    cpu = run("cpu")
+    diff = (card[0] - cpu[0]).abs()
+    max_abs = diff.max().item()
+    beyond = (diff - _bf16_ulp(cpu[0])).max().item()
+    grads = [_rel(a, b) for a, b in zip(card[1:], cpu[1:])]
+    print(f"   output: max abs error {max_abs:.3e}, {beyond:.3e} past one "
+          f"bf16 ulp (bound {CAUSAL_ABS_TOL}), rel L2 "
+          f"{_rel(card[0], cpu[0]):.2e}; gradients dq dk dv rel L2 "
+          f"{[f'{e:.2e}' for e in grads]} (bound {CAUSAL_REL_TOL}); "
+          f"launches {run_counts.counts}")
+    if any(run_counts.counts.values()):
+        fail(f"causal attention launched a kernel: {run_counts.counts}")
+    if beyond > CAUSAL_ABS_TOL or max(grads) > CAUSAL_REL_TOL or not all(
+            torch.isfinite(y).all() for y in card):
+        fail("causal attention on the card disagrees with the CPU")
+    if card[0][0].abs().max().item() != 0.0:
+        fail("causal attention: the kv_len 0 sample is not all zeros")
+    done(t0)
+    return {"max_abs_err": max_abs, "past_one_ulp": beyond,
+            "grad_rel_err": grads}
 
 
 def _free():
@@ -2300,6 +2521,8 @@ def phase_wan_dpm():
           f"state at step {opts.turbo_switch_step + 1}): schedule {kinds}")
     turbo = _wan_run(sampler, opts, kinds, ctx, null)
     turbo["switch"] = opts.turbo_switch_step
+    done(t0)
+    turbo["selection"] = phase_selection_wan(sampler, ctx, null)
     del sampler
     _free()
     done(t0)
@@ -4460,6 +4683,7 @@ def main():
     recs, main_rec, member, dense, extra = phase_kernel_cases()
     hy, hy_turbo, fp8_ref = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
+    causal = phase_causal()
     hy_i2v = phase_hy_i2v_main_path()
     wan_i2v, wan_i2v_plan = phase_wan_i2v_main_path()
     rel = phase_end_to_end()
@@ -4507,7 +4731,11 @@ def main():
             "sp_wan_t2v_1.3b_gloo_sp2": sp["17e_wan_gloo_sp2"]["launches"],
             "wan_t2v_1.3b_batch": batch["batch"]["launches"],
             "wan_t2v_1.3b_vbench": batch["vbench"]["launches"],
-            "wan_t2v_1.3b_single_seed": batch["single_seed"]["launches"]}
+            "wan_t2v_1.3b_single_seed": batch["single_seed"]["launches"],
+            "selection_hyvideo_t2v_forward":
+                hy_turbo["selection"]["launches"],
+            "selection_wan_t2v_1.3b_forward":
+                wan_turbo["selection"]["launches"]}
 
     def launches(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -4642,6 +4870,10 @@ def main():
     print("sp: " + json.dumps(sp))
     print("batch: " + json.dumps({"18a_batch": batch, "18b_decode": decode,
                                   "18c_expanders": expanders}))
+    print("selection: " + json.dumps({
+        "19a_hy": hy_turbo["selection"], "19b_wan": wan_turbo["selection"],
+        "19c_causal": causal, "jax_bench_density": SEL_JAX_DENSITY,
+        "gpu": gpu_line()}))
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     print(f"gpu: {gpu_line()}")
     print(json.dumps(kernels))

@@ -80,7 +80,8 @@ on ``--device`` (``text.prompt_extend.LocalLLMExpander``; with
 image), ``--prompt-extend-method api`` posts to an OpenAI/DashScope-style
 endpoint instead (``PROMPT_EXTEND_API_URL``, ``DASH_API_KEY``);
 ``--prompt-extend-mode`` picks the system prompt. The local expanders
-tokenize with ``transformers``.
+tokenize with ``transformers``. Under torchrun rank 0 alone extends the
+prompt and hands the text to the other ranks.
 
 ``hyvideo-i2v --i2v-image-path`` loads the image and, without
 ``--video-size``, buckets the video size by its aspect at
@@ -317,10 +318,37 @@ def _save(args, out, t0):
 def _maybe_extend_prompt(args, prompt):
     """``prompt`` through the expander the ``--prompt-extend-*`` flags
     name (a local LM or llava dir on ``--device``, or the API), else as
-    it is. ``vl`` needs the command's image."""
+    it is. ``vl`` needs the command's image.
+
+    Under several ranks (torchrun) rank 0 alone builds the expander and
+    extends the prompt, then broadcasts the text, or the message of its
+    failure: every rank returns the same string, or raises the same
+    ``SystemExit``, so none conditions on another prompt and none is left
+    waiting in a collective. (JAX's CLI extends on every process.)"""
     use_api = args.prompt_extend_method == "api"
     if not args.prompt_extend_model and not use_api:
         return prompt
+    import torch.distributed as dist
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return _extend_prompt(args, prompt, use_api)
+    box = [None]
+    if dist.get_rank() == 0:
+        try:
+            box[0] = (True, _extend_prompt(args, prompt, use_api))
+        except SystemExit as e:
+            box[0] = (False, str(e.code))
+        except Exception as e:  # noqa: BLE001 - every rank must hear of it
+            box[0] = (False, f"prompt extension failed on rank 0: "
+                             f"{type(e).__name__}: {e}")
+    dist.broadcast_object_list(box, src=0)
+    ok, text = box[0]
+    if not ok:
+        raise SystemExit(text)
+    return text
+
+
+def _extend_prompt(args, prompt, use_api: bool):
+    """Build the expander and extend ``prompt`` (on one rank)."""
     from .text.prompt_extend import (APIExpander, LocalLLMExpander,
                                      LocalVLExpander, PromptExpander)
     if args.prompt_extend_mode == "vl":

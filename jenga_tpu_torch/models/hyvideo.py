@@ -28,6 +28,10 @@ rows included) in every block instead of the planner, with the JAX
 package's guards: on any non-carved call it raises, and a mask of another
 grid fails its shape check.
 
+``hy_first_selection_mask`` gives the first double block's planner mask
+(video query rows) without running attention, through the same q/k and
+planner code as the forward: the selection density a run realizes.
+
 Sequence parallelism (``mesh=``, ``parallel/``): ``embed`` keeps this
 rank's slice of the curve-ordered image tokens (with their RoPE rows and
 token-replace mask; sliced over ``ring`` x ``sp``, copied over any other
@@ -64,7 +68,7 @@ from . import layers as L
 
 __all__ = ["HYVideoConfig", "HYCarve", "HYVideoDiT", "make_hy_carve",
            "hy_rope_tables", "hy_i2v_config", "HUNYUAN_VIDEO_T2V",
-           "init_hyvideo_"]
+           "init_hyvideo_", "hy_first_selection_mask"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -334,6 +338,32 @@ def _joint_attention_sp(q, k, v, carve: HYCarve | None, img_len: int,
     return torch.cat([img_out, txt_out], dim=1).reshape(b, s, n * hd)
 
 
+def _to_blocks(x, s_pad: int):
+    """[B, S, H, D] -> [B, H, s_pad, D] with zero rows past S."""
+    return torch.nn.functional.pad(
+        x, (0, 0, 0, 0, 0, s_pad - x.shape[1])).transpose(1, 2)
+
+
+def _video_mask(qt, kt, carve: HYCarve, img_len: int, top_k=None):
+    """The planner's selection for the video query rows of a carved joint
+    sequence, [B, H, tsb, nkb] bool, from the padded [B, H, S_pad, D] q
+    and k: the top ``top_k`` (by default ``(1 - sa_drop_rate)`` of the
+    ``img_len`` video tokens' blocks) plus the top-p rest, the text
+    blocks and the curve neighbours, per group of ``q_rows`` query blocks
+    under joint selection."""
+    num_blocks = qt.shape[2] // 128
+    tsb = num_blocks - carve.txt_block_num
+    if top_k is None:
+        top_k = int((1.0 - carve.sa_drop_rate) * (img_len // 128))
+    qr = max(1, int(carve.q_rows))
+    joint = qr > 1 and carve.joint_sel
+    return build_block_mask(
+        qt[:, :, :tsb * 128], kt, top_k=top_k, p_remain=carve.p_remain,
+        text_start_block=tsb, text_blocks=carve.txt_block_num,
+        block_neighbors=carve.block_neighbors,
+        sel_group=qr if joint else 1)
+
+
 def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen,
                      mesh=None, img_total: int | None = None):
     """Joint img+txt attention: sparse video rows and dense text rows in
@@ -357,12 +387,9 @@ def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen,
     if not carved:
         return attention_bshd(q, k, v, kv_len=seqlen).reshape(b, s, n * hd)
 
-    pad = s_pad - s
-    qt, kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-                  .transpose(1, 2) for x in (q, k, v))
+    qt, kt, vt = (_to_blocks(x, s_pad) for x in (q, k, v))
     num_blocks = s_pad // 128
     tsb = num_blocks - carve.txt_block_num
-    top_k = int((1.0 - carve.sa_drop_rate) * (img_len // 128))
     qr = max(1, int(carve.q_rows))
     joint = qr > 1 and carve.joint_sel
     if carve.sel_mask is not None:
@@ -376,11 +403,7 @@ def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen,
                 "expected (B, H, nqb, nkb incl. text rows) — was it "
                 "recorded on a different grid?")
     else:
-        mask = build_block_mask(
-            qt[:, :, :tsb * 128], kt, top_k=top_k, p_remain=carve.p_remain,
-            text_start_block=tsb, text_blocks=carve.txt_block_num,
-            block_neighbors=carve.block_neighbors,
-            sel_group=qr if joint else 1)
+        mask = _video_mask(qt, kt, carve, img_len)
         full = torch.ones((b, n, num_blocks - tsb, num_blocks),
                           dtype=torch.bool, device=q.device)
         mask = torch.cat([mask, full], dim=2)
@@ -409,14 +432,10 @@ class DoubleBlock(nn.Module):
         self.img_mlp = L.MLP(d, mh, d, dt, device)
         self.txt_mlp = L.MLP(d, mh, d, dt, device)
 
-    def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen,
-                tr=None, mesh=None, img_total=None):
-        """``tr``: None, or the token replacement's ``vec`` (the t=0
-        modulation vector) and ``mask_img`` (first-frame image tokens).
-        On a ``mesh``, img is this rank's slice of ``img_total`` tokens."""
-        b, si, d = img.shape
-        st = txt.shape[1]
-        n, hd = self.cfg.heads_num, self.cfg.head_dim
+    def modulations(self, vec, tr=None):
+        """The image and text streams' six modulation chunks [B, 1, d]
+        (f32) and, under token replacement, the image stream's t=0 ones
+        with the first-frame mask (else None)."""
         im = self.img_mod(L.silu(vec)).float()[:, None].chunk(6, dim=-1)
         tm = self.txt_mod(L.silu(vec)).float()[:, None].chunk(6, dim=-1)
         tr_img = None
@@ -425,7 +444,15 @@ class DoubleBlock(nn.Module):
             tr_img = {"mask": tr["mask_img"], "mod1": (trm[0], trm[1]),
                       "gate1": trm[2], "mod2": (trm[3], trm[4]),
                       "gate2": trm[5]}
+        return im, tm, tr_img
 
+    def joint_qkv(self, img, txt, im, tm, tr_img, rope_cos, rope_sin):
+        """The joint attention's q, k, v [B, S_img + S_txt, H, D]: each
+        stream modulated, projected and q/k RMS-normed, RoPE on the image
+        rows. Shared by ``forward`` and ``hy_first_selection_mask``."""
+        b, si, _ = img.shape
+        st = txt.shape[1]
+        n, hd = self.cfg.heads_num, self.cfg.head_dim
         img_mod = _mod_tr(img, im[0], im[1], tr_img, "mod1")
         img_qkv = self.img_qkv(img_mod).reshape(b, si, 3, n, hd)
         img_q = L.rms_norm(img_qkv[:, :, 0], self.img_q_norm)
@@ -441,6 +468,17 @@ class DoubleBlock(nn.Module):
         q = torch.cat([img_q, txt_q], dim=1)
         k = torch.cat([img_k, txt_k], dim=1)
         v = torch.cat([img_qkv[:, :, 2], txt_qkv[:, :, 2]], dim=1)
+        return q, k, v
+
+    def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen,
+                tr=None, mesh=None, img_total=None):
+        """``tr``: None, or the token replacement's ``vec`` (the t=0
+        modulation vector) and ``mask_img`` (first-frame image tokens).
+        On a ``mesh``, img is this rank's slice of ``img_total`` tokens."""
+        si = img.shape[1]
+        im, tm, tr_img = self.modulations(vec, tr)
+        q, k, v = self.joint_qkv(img, txt, im, tm, tr_img, rope_cos,
+                                 rope_sin)
         attn = _joint_attention(q, k, v, carve, si, seqlen, mesh,
                                 img_total)
         img_attn, txt_attn = attn[:, :si], attn[:, si:]
@@ -665,6 +703,29 @@ class HYVideoDiT(nn.Module):
                                    text_states_2, carve, guidance, mesh)
         img = self.trunk(img, txt, aux, carve, remat=remat, mesh=mesh)
         return self.head(img, aux, carve, mesh)
+
+
+def hy_first_selection_mask(model: HYVideoDiT, x, t, text_states,
+                            text_mask, text_states_2, carve: HYCarve,
+                            guidance=None, top_k=None):
+    """Diagnostic: the carving planner's selection mask for the FIRST
+    double block's video query rows, [B, H, tsb, nkb] bool, with no
+    attention run. q and k come from the block's own ``modulations`` and
+    ``joint_qkv`` (token replacement included) and the mask from the
+    forward's ``_video_mask``, so it is the mask a carved forward's first
+    block plans on the same inputs. ``top_k`` defaults to ``(1 -
+    sa_drop_rate)`` of the video blocks; ``carve.sel_mask`` is not
+    consulted. Port of ``jenga_tpu.models.hyvideo.hy_first_selection_mask``
+    (the JAX bench's ``density`` and ``q4_union_frac``)."""
+    img, txt, aux = model.embed(x, t, text_states, text_mask, text_states_2,
+                                carve, guidance)
+    blk = model.double_blocks[0]
+    im, tm, tr_img = blk.modulations(aux["vec"], aux["tr"])
+    q, k, _ = blk.joint_qkv(img, txt, im, tm, tr_img, aux["rope_cos"],
+                            aux["rope_sin"])
+    s_pad = -(-q.shape[1] // 128) * 128
+    return _video_mask(_to_blocks(q, s_pad), _to_blocks(k, s_pad), carve,
+                       img.shape[1], top_k)
 
 
 @torch.no_grad()

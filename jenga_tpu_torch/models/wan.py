@@ -35,6 +35,10 @@ selection [B, H, nb, nb] in every layer instead of the planner, with the
 JAX package's guards: on the dense fallback it raises, and a mask of
 another grid fails its shape check.
 
+``wan_first_selection_mask`` gives the first block's planner mask without
+running attention, through the same q/k and planner code as the forward:
+the selection density a run realizes.
+
 Sequence parallelism (``mesh=``, ``parallel/``): the tokens are sliced
 over the ``sp`` axis alone and copied over any other (``ring``, ``dp``),
 as in the JAX package. ``embed`` keeps this rank's slice of the
@@ -69,7 +73,7 @@ from . import layers as L
 
 __all__ = ["WanConfig", "WanCarve", "WanDiT", "make_wan_carve",
            "wan_rope_tables", "init_wan_", "WAN_T2V_1_3B", "WAN_T2V_14B",
-           "WAN_I2V_14B", "CLIP_DIM"]
+           "WAN_I2V_14B", "CLIP_DIM", "wan_first_selection_mask"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -258,6 +262,41 @@ def _sp_attention(q, k, v, cfg: WanConfig, carve: WanCarve | None,
     return ring_attention(q, k, v, mesh, length=length)
 
 
+def _self_qkv(p: WanAttention, x, cfg: WanConfig, rope_cos=None,
+              rope_sin=None):
+    """The self-attention's q, k, v [B, S, H, D] from its input x: q and
+    k RMS-normed over ``dim``, then rotated when the RoPE tables are
+    given. Shared by ``_self_attention`` and
+    ``wan_first_selection_mask``."""
+    b, s, d = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
+    k = L.rms_norm(p.k(x), p.norm_k, cfg.eps).reshape(b, s, n, hd)
+    v = p.v(x).reshape(b, s, n, hd)
+    if rope_cos is not None:
+        q = L.apply_rope(q, rope_cos, rope_sin)
+        k = L.apply_rope(k, rope_cos, rope_sin)
+    return q, k, v
+
+
+def _self_mask(qt, kt, carve: WanCarve, top_k=None):
+    """The planner's selection [B, H, nb, nb] bool over [B, H, S_pad, D]
+    q and k: the top ``top_k`` blocks (by default ``(1 - sa_drop_rate)``
+    of them), the top-p rest, the curve neighbours and the first-frame
+    blocks, per group of ``q_rows`` query blocks under joint selection."""
+    num_blocks = qt.shape[2] // 128
+    if top_k is None:
+        top_k = int(num_blocks * (1.0 - carve.sa_drop_rate))
+    qr = max(1, int(carve.q_rows))
+    joint = qr > 1 and carve.joint_sel
+    return build_block_mask(
+        qt, kt, top_k=top_k, p_remain=carve.p_remain,
+        text_start_block=num_blocks, text_blocks=0,
+        block_neighbors=carve.block_neighbors,
+        first_frame_blocks=carve.first_frame_blocks,
+        sel_group=qr if joint else 1)
+
+
 def _self_attention(p: WanAttention, x, cfg: WanConfig,
                     carve: WanCarve | None, rope_cos, rope_sin, top_k=None,
                     mesh=None, length: int | None = None):
@@ -266,16 +305,13 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
     On a ``mesh``, x is this rank's slice of ``length`` tokens and the
     RoPE tables cover all of them (``_sp_attention``)."""
     b, s, d = x.shape
-    n, hd = cfg.num_heads, cfg.head_dim
-    q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
-    k = L.rms_norm(p.k(x), p.norm_k, cfg.eps).reshape(b, s, n, hd)
-    v = p.v(x).reshape(b, s, n, hd)
+    n = cfg.num_heads
     if mesh is not None:
+        q, k, v = _self_qkv(p, x, cfg)
         out = _sp_attention(q, k, v, cfg, carve, rope_cos, rope_sin, top_k,
                             mesh, length)
         return p.o(out.reshape(b, s, d))
-    q = L.apply_rope(q, rope_cos, rope_sin)
-    k = L.apply_rope(k, rope_cos, rope_sin)
+    q, k, v = _self_qkv(p, x, cfg, rope_cos, rope_sin)
 
     if carve is None or carve.sa_drop_rate <= 0.25:
         if carve is not None and carve.sel_mask is not None:
@@ -291,10 +327,7 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
     else:
         qt, kt, vt = (x_.transpose(1, 2) for x_ in (q, k, v))
         num_blocks = s // 128
-        if top_k is None:
-            top_k = int(num_blocks * (1.0 - carve.sa_drop_rate))
         qr = max(1, int(carve.q_rows))
-        joint = qr > 1 and carve.joint_sel
         if carve.sel_mask is not None:
             # its layout depends on q_rows / joint_sel: replay it with the
             # ones it was recorded under
@@ -306,16 +339,11 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
                     f"{expect} expected for this stage (B, H, nqb, nkb) "
                     "— was it recorded on a different grid?")
         else:
-            mask = build_block_mask(
-                qt, kt, top_k=top_k, p_remain=carve.p_remain,
-                text_start_block=num_blocks, text_blocks=0,
-                block_neighbors=carve.block_neighbors,
-                first_frame_blocks=carve.first_frame_blocks,
-                sel_group=qr if joint else 1)
+            mask = _self_mask(qt, kt, carve, top_k)
         out = sparse_attention_from_mask(
             qt, kt, vt, mask, seqlens=carve.seqlen,
             text_start_block=num_blocks, q_rows=qr,
-            joint=joint).transpose(1, 2)
+            joint=qr > 1 and carve.joint_sel).transpose(1, 2)
     return p.o(out.reshape(b, s, d))
 
 
@@ -359,13 +387,23 @@ class WanBlock(nn.Module):
         self.ffn = L.MLP(d, cfg.ffn_dim, d, dt, device)
         self.modulation = L.param((6, d), torch.float32, device)
 
+    def modulations(self, e6):
+        """The six modulation chunks [B, 1, d] (f32) of time embedding
+        ``e6``."""
+        e = self.modulation[None].float() + e6            # [B, 6, d] f32
+        return tuple(e[:, i:i + 1] for i in range(6))
+
+    def self_attn_input(self, x, e0, e1):
+        """The self-attention's input: x layer-normed and modulated."""
+        return L.modulate(L.layer_norm(x, eps=self.cfg.eps), shift=e0,
+                          scale=e1)
+
     def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None,
                 image_tokens: int = 0, mesh=None, length=None):
         """On a ``mesh``, x is this rank's slice of ``length`` tokens."""
         cfg = self.cfg
-        e = self.modulation[None].float() + e6            # [B, 6, d] f32
-        e0, e1, e2, e3, e4, e5 = (e[:, i:i + 1] for i in range(6))
-        y = L.modulate(L.layer_norm(x, eps=cfg.eps), shift=e0, scale=e1)
+        e0, e1, e2, e3, e4, e5 = self.modulations(e6)
+        y = self.self_attn_input(x, e0, e1)
         y = _self_attention(self.self_attn, y, cfg, carve, rope_cos,
                             rope_sin, top_k, mesh, length)
         x = _gated(x, y, e2)
@@ -502,6 +540,24 @@ class WanDiT(nn.Module):
         h, aux = self.embed(x, t, context, carve, clip_fea, y, mesh)
         h = self.trunk(h, aux, carve, top_k, mesh, remat)
         return self.head(h, aux, carve, mesh)
+
+
+def wan_first_selection_mask(model: WanDiT, x, t, context,
+                             carve: WanCarve, top_k=None):
+    """Diagnostic: the carving planner's selection mask for the FIRST
+    block, [B, H, nb, nb] bool, with no attention run. q and k come from
+    the block's own ``modulations``, ``self_attn_input`` and
+    ``_self_qkv``, the mask from the forward's ``_self_mask``, so it is
+    the mask a carved forward's first block plans on the same inputs
+    (there ``sa_drop_rate > 0.25``). ``top_k`` defaults to ``(1 -
+    sa_drop_rate)`` of the blocks; ``carve.sel_mask`` is not consulted.
+    Port of ``jenga_tpu.models.wan.wan_first_selection_mask``."""
+    h, aux = model.embed(x, t, context, carve)
+    blk = model.blocks[0]
+    e = blk.modulations(aux["e6"])
+    q, k, _ = _self_qkv(blk.self_attn, blk.self_attn_input(h, e[0], e[1]),
+                        model.cfg, carve.rope_cos, carve.rope_sin)
+    return _self_mask(q.transpose(1, 2), k.transpose(1, 2), carve, top_k)
 
 
 @torch.no_grad()

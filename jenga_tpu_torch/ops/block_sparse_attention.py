@@ -104,7 +104,8 @@ def _check_operands(q, k, v, indices, counts, members, seqlens, q_rows):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"block_sparse_attention: {name} must be "
-                            f"bfloat16, got {x.dtype}")
+                            f"bfloat16, got {x.dtype} (on CUDA build the "
+                            f'model with dtype="bfloat16")')
     b, h, s, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
@@ -152,8 +153,11 @@ def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
     listed blocks whose bit ``i % q_rows`` is set. Returns [B, H, S, D] in
     q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 only) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The kernel takes bfloat16 q, k and v with a head dim of at most
+    128 (a ``TypeError`` or ``ValueError`` otherwise): a model run on the
+    card must be built with ``dtype="bfloat16"``, which every published
+    config has."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if not q.is_cuda:

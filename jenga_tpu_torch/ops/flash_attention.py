@@ -28,10 +28,12 @@ run on contiguous copies. Each source is built at first use by
 ``cuda_build.build_library``.
 
 Every entry point launches its kernel for CUDA tensors (bf16, head dim
-128, non-causal, or it raises) and uses its plain version only for CPU
-tensors; there is no fallback between the two, and none between the
-routes. Counters: ``dense_attention.launches`` (every forward launch, on
-either route, with or without the statistics),
+128, or it raises) and uses its plain version only for CPU tensors; there
+is no fallback between the two, and none between the routes.
+``dense_attention(causal=True)`` reaches no kernel: as in JAX, which
+computes it in jnp, it is plain torch on either device
+(``_causal_attention``). Counters: ``dense_attention.launches`` (every
+forward launch, on either route, with or without the statistics),
 ``dense_attention.short_launches`` (those of the short-key route),
 ``dense_attention_backward.dkv_launches`` and ``.dq_launches`` (the
 route over ``SHORT_KEYS`` keys) and ``.short_launches`` (the short-key
@@ -237,7 +239,8 @@ def _check_operands(name, *xs):
     for x in xs:
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{name}: operands must be bfloat16, got "
-                            f"{x.dtype}")
+                            f"{x.dtype} (on CUDA build the model with "
+                            f'dtype="bfloat16")')
     b, h, sq, d = q.shape
     k, v = xs[1], xs[2]
     skv = k.shape[2]
@@ -491,18 +494,54 @@ class _DenseAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _causal_attention(q, k, v, sm_scale: float, kv_len):
+    """Causal dense attention as JAX computes it (in jnp, outside any
+    Pallas kernel, on every backend): f32 logits times ``sm_scale``, the
+    mask ``tril(ones(Sq, Skv))`` aligned top-left (query i sees keys
+    0..i, also when Sq != Skv) and the keys below ``kv_len``, the
+    softmax with zeros for a row with no key, the product with v in f32,
+    the output in q's dtype. The query axis is chunked so one chunk's
+    logits stay under 2^28 elements. Plain torch ops, so autograd
+    differentiates it."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    kmask = _key_mask(kv_len, b, skv, q.device)
+    kf, vf = k.float(), v.float()
+    keys = torch.arange(skv, device=q.device)
+    outs = []
+    chunk = _chunk(b, h, skv)
+    for c0 in range(0, sq, chunk):
+        qc = q[:, :, c0:c0 + chunk].float()
+        rows = torch.arange(c0, c0 + qc.shape[2], device=q.device)
+        mask = (keys[None] <= rows[:, None])[None, None]
+        if kmask is not None:
+            mask = mask & kmask
+        logits = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * sm_scale
+        p = _masked_softmax(logits.masked_fill(~mask, float("-inf")))
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
 def dense_attention(q, k, v, *, sm_scale: float | None = None,
                     causal: bool = False, kv_len=None):
-    """Dense non-causal attention over [B, H, S, D]; ``kv_len`` None or [B]
-    valid key counts. Returns [B, H, Sq, D] in q's dtype; differentiable
-    in q, k and v.
+    """Dense attention over [B, H, S, D]; ``kv_len`` None or [B] valid key
+    counts (or one count for every sample). Returns [B, H, Sq, D] in q's
+    dtype; differentiable in q, k and v.
 
-    CPU tensors take the plain versions; CUDA tensors launch the kernels
-    or raise."""
-    if causal:
-        raise NotImplementedError("causal dense attention is not ported")
+    Non-causal: CPU tensors take the plain versions; CUDA tensors launch
+    the kernels or raise. The kernels take bfloat16 operands with head
+    dim 128 only (a ``TypeError`` or ``ValueError`` otherwise): a model
+    run on the card must be built with ``dtype="bfloat16"``, which every
+    published config has.
+
+    ``causal=True``: ``_causal_attention`` on either device, for any
+    dtype and head dim: plain torch ops, as JAX computes it, and never
+    kernel D or a library kernel (those would give NaN, not zeros, for a
+    row with no key). No pipeline calls it, in either package."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if causal:
+        return _causal_attention(q, k, v, float(sm_scale), kv_len)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         if kv_len is not None:
             kv_len = _kv_len_tensor(kv_len, q.shape[0], q.device)

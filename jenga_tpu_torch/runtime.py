@@ -230,7 +230,10 @@ class HunyuanVideoSampler:
         seeded init where its file is not, or without ``ckpt_dir``. A DiT
         whose ``img_in`` takes another channel count than the config
         raises. ``sp_degree``/``ring_degree``: sequence parallelism (the
-        module docstring)."""
+        module docstring). On CUDA keep ``dtype="bfloat16"``: the attention
+        kernels take bf16 only (head dim 128 for D, at most 128 for the
+        block-sparse kernel), so another dtype raises at the first
+        attention; ``float32`` runs on the CPU."""
         device = resolve_device(device)
         base = dataclasses.replace(HUNYUAN_VIDEO_T2V, dtype=dtype)
         cfg = hy_i2v_config(i2v_condition_type, base) if i2v else base
@@ -545,7 +548,10 @@ class WanSampler:
         ``FileNotFoundError`` rather than run random weights), the VAE, T5
         (on the CPU with ``t5_on_host``) and, for I2V, the CLIP image
         tower, where their files are. Without ``ckpt_dir``, the DiT from a
-        seeded init and nothing else."""
+        seeded init and nothing else. On CUDA keep ``dtype="bfloat16"``:
+        the attention kernels take bf16 only (head dim 128 for D, at most
+        128 for the block-sparse kernel), so another dtype raises at the
+        first attention; ``float32`` runs on the CPU."""
         device = resolve_device(device)
         cfg = dataclasses.replace(cls.CONFIGS[task], dtype=dtype)
         params = vae = t5 = clip_vision = None

@@ -4,12 +4,13 @@
 
 Each rank joins a gloo group through the ``file://`` store (no TCP port,
 so test files running side by side cannot collide), runs every case of
-``suite`` ("parallel" or "dryrun") on its meshes, writes what each case
-returned to ``<dir>/w<world>/rank<rank>.npz`` and prints ``RANK_OK``. Model
-weights come from ``<dir>/<name>.npz`` (``convert.save_params``), written
-by the test from the JAX init through the converters. No JAX here: the
-test files import this module and run the same cases with ``mesh=None``,
-the single-device (world 1) reference, and hold both against JAX.
+``suite`` ("parallel", "dryrun" or "extend") on its meshes, writes what
+each case returned to ``<dir>/w<world>/rank<rank>.npz`` and prints
+``RANK_OK``. Model weights come from ``<dir>/<name>.npz``
+(``convert.save_params``), written by the test from the JAX init through
+the converters. No JAX here: the test files import this module and run
+the same cases with ``mesh=None``, the single-device (world 1)
+reference, and hold both against JAX.
 
 Every case returns a dict of numpy arrays. Op cases return this rank's
 token slice (with its ``start``); model cases the whole, gathered output,
@@ -522,6 +523,90 @@ def case_cli(meshes, mesh_key, d):
             "exists": np.array(os.path.exists(path))}
 
 
+# ------------------------------------------------------- "extend" suite
+
+# prompt extension under torchrun: rank 0 alone builds the expander and
+# extends, every rank takes its text (or its failure). The stubs answer
+# each rank with another text, so a rank that extended for itself shows.
+EXTEND_ARGS = {
+    "api": ["wan-t2v", "--prompt-extend-method", "api"],
+    "local": ["wan-t2v", "--prompt-extend-model", "lm"],
+    "vl_api": ["wan-i2v", "--prompt-extend-method", "api",
+               "--prompt-extend-mode", "vl", "--image", "IMG"],
+    "api_fails": ["wan-t2v", "--prompt-extend-method", "api"],
+    "vl_without_image": ["wan-t2v", "--prompt-extend-model", "lm",
+                         "--prompt-extend-mode", "vl"],
+}
+EXTEND_PROMPT = "a red fox"
+
+
+def extend_case(name):
+    """``cli._maybe_extend_prompt`` with the ``EXTEND_ARGS[name]`` flags:
+    the text this rank returns (or its ``SystemExit`` message, or the
+    ``RuntimeError`` it raised), the
+    requests its transport took, the expanders and image parts it built
+    and the lines it printed. Run without a group, the world-1
+    reference."""
+    def case(meshes, mesh_key, d):
+        import json
+        from jenga_tpu_torch import cli
+        from jenga_tpu_torch.text import prompt_extend as tpe
+        dist = torch.distributed
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        counts = {"requests": 0, "expanders": 0, "image_parts": 0}
+
+        def post(url, headers, body, timeout):
+            counts["requests"] += 1
+            if name == "api_fails":
+                raise ConnectionError("endpoint unreachable")
+            return json.dumps({"output": {"text": f"api text of rank "
+                                                  f"{rank}"}}).encode()
+
+        def image_part(image):
+            counts["image_parts"] += 1
+            return {"type": "image_url", "image_url": {"url": image}}
+
+        def counted(cls):
+            class Counted(cls):
+                def __init__(self, *a, **k):
+                    counts["expanders"] += 1
+                    super().__init__(*a, **k)
+            return Counted
+
+        class LocalStub:
+            def __init__(self, model_dir, *a, **k):
+                counts["expanders"] += 1
+
+            def __call__(self, system, user, image=None):
+                return f"local text of rank {rank}"
+
+        argv = [a.replace("IMG", os.path.join(d, "img.png"))
+                for a in EXTEND_ARGS[name]]
+        args = cli.build_parser().parse_args(
+            argv + ["--prompt", EXTEND_PROMPT, "--device", "cpu"])
+        buf = io.StringIO()
+        with mock.patch.object(tpe.APIExpander, "_http_post",
+                               staticmethod(post)), \
+                mock.patch.object(tpe.APIExpander, "_image_part",
+                                  staticmethod(image_part)), \
+                mock.patch.object(tpe, "APIExpander",
+                                  counted(tpe.APIExpander)), \
+                mock.patch.object(tpe, "LocalLLMExpander", LocalStub), \
+                mock.patch.object(tpe, "LocalVLExpander", LocalStub), \
+                mock.patch("time.sleep"), contextlib.redirect_stdout(buf):
+            try:
+                out = {"prompt": np.array(cli._maybe_extend_prompt(
+                    args, args.prompt))}
+            except SystemExit as e:
+                out = {"exit": np.array(str(e.code))}
+            except RuntimeError as e:
+                out = {"error": np.array(f"{type(e).__name__}: {e}")}
+        out.update({k: np.array(v) for k, v in counts.items()})
+        out["stdout"] = np.array(buf.getvalue())
+        return out
+    return case
+
+
 # ------------------------------------------------------- "dryrun" suite
 
 # JAX's _dryrun_worker cases at n = 4 ranks (head dim 128, f32)
@@ -695,6 +780,7 @@ SUITES = {
         "wan_carved_bad_heads": dry_case(wan_carved_bad_heads),
         **{n: dry_case(hy_dry, n) for n in HY_DRY},
     },
+    "extend": {n: extend_case(n) for n in EXTEND_ARGS},
 }
 # cases that need the 2 x 2 mesh, and those only a world of 2 runs
 NEEDS_2D = {"op/ring_ulysses", "op/ring_ulysses_uneven", "bad_heads"}

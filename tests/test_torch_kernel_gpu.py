@@ -179,7 +179,7 @@ def test_kernel_rejects_f32_operands(cuda_device):
     q, k, v, mask = _inputs(13, cuda_device)
     idx, cnt, _ = block_lists_from_mask(mask, 1, False)
     sl = torch.tensor([NB * 128], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match='dtype="bfloat16"'):
         block_sparse_attention(q.float(), k.float(), v.float(), idx, cnt, sl)
 
 
@@ -756,12 +756,17 @@ def test_hy_token_replace_pins_first_frame_on_card(cuda_device):
 @pytest.mark.gpu
 def test_dense_kernel_rejects_what_it_does_not_cover(cuda_device):
     q, k, v = _dense_inputs(15, cuda_device, 1, 256, 256)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match='dtype="bfloat16"'):
         dense_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         dense_attention(q[..., :64], k[..., :64], v[..., :64])
-    with pytest.raises(NotImplementedError):
-        dense_attention(q, k, v, causal=True)
+    # causal attention is plain torch on the card too (no kernel, as in
+    # JAX): the CPU's numbers, nothing launched
+    before = dense_attention.launches
+    out = dense_attention(q, k, v, causal=True)
+    assert dense_attention.launches == before
+    ref = dense_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert torch.allclose(out.float().cpu(), ref.float(), atol=1e-2)
     # a launch the short-key kernel refuses (over its 512 keys, routed to
     # it) raises with the CUDA error string and counts nothing
     q, k, v = _dense_inputs(15, cuda_device, 1, 256, 600)

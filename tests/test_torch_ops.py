@@ -289,7 +289,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_dense_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors D's wrapper is its plain version whatever the route
     (256 keys would take the short-key kernel on the card) and counts no
-    launch on either; attention_bshd likewise."""
+    launch on either; attention_bshd likewise. ``causal=True`` (ported
+    since; held to JAX in ``test_torch_causal.py``) counts none either and
+    gives another function: row 0 sees key 0 alone."""
     q, k, v = (t(x) for x in _qkv(13, nb=2, d=128))
     before = (dense_attention.launches, dense_attention.short_launches)
     a = dense_attention(q, k, v, kv_len=[200])
@@ -299,5 +301,8 @@ def test_dense_wrapper_takes_plain_version_on_cpu():
         before
     assert torch.equal(a, dense_attention_plain(q, k, v, kv_len=[200]))
     assert torch.equal(c, a.transpose(1, 2))
-    with pytest.raises(NotImplementedError):
-        dense_attention(q, k, v, causal=True)
+    causal = dense_attention(q, k, v, causal=True)
+    assert (dense_attention.launches, dense_attention.short_launches) == \
+        before
+    assert torch.equal(causal[:, :, 0], v[:, :, 0])
+    assert not torch.equal(causal, a)
