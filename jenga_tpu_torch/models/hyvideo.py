@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import obs
 from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
@@ -258,6 +259,7 @@ class TokenRefiner(nn.Module):
         return x
 
 
+@obs.spanned("modulate")
 def _gated(x, y, gate):
     return (x.float() + y.float() * gate).to(x.dtype)
 
@@ -338,6 +340,13 @@ def _joint_attention_sp(q, k, v, carve: HYCarve | None, img_len: int,
     return torch.cat([img_out, txt_out], dim=1).reshape(b, s, n * hd)
 
 
+@obs.spanned("layout")
+def _cat(xs, dim: int):
+    """``torch.cat``, a copy of the layout."""
+    return torch.cat(xs, dim=dim)
+
+
+@obs.spanned("layout")
 def _to_blocks(x, s_pad: int):
     """[B, S, H, D] -> [B, H, s_pad, D] with zero rows past S."""
     return torch.nn.functional.pad(
@@ -403,14 +412,16 @@ def _joint_attention(q, k, v, carve: HYCarve | None, img_len: int, seqlen,
                 "expected (B, H, nqb, nkb incl. text rows) — was it "
                 "recorded on a different grid?")
     else:
-        mask = _video_mask(qt, kt, carve, img_len)
-        full = torch.ones((b, n, num_blocks - tsb, num_blocks),
-                          dtype=torch.bool, device=q.device)
-        mask = torch.cat([mask, full], dim=2)
+        with obs.span("planner"):
+            mask = _video_mask(qt, kt, carve, img_len)
+            full = torch.ones((b, n, num_blocks - tsb, num_blocks),
+                              dtype=torch.bool, device=q.device)
+            mask = torch.cat([mask, full], dim=2)
     out = sparse_attention_from_mask(
         qt, kt, vt, mask, seqlens=seqlen, text_start_block=tsb,
         text_amp=carve.text_amp, q_rows=qr, joint=joint)
-    return out.transpose(1, 2)[:, :s].reshape(b, s, n * hd)
+    with obs.span("layout"):
+        return out.transpose(1, 2)[:, :s].reshape(b, s, n * hd)
 
 
 class DoubleBlock(nn.Module):
@@ -465,11 +476,12 @@ class DoubleBlock(nn.Module):
         txt_q = L.rms_norm(txt_qkv[:, :, 0], self.txt_q_norm)
         txt_k = L.rms_norm(txt_qkv[:, :, 1], self.txt_k_norm)
 
-        q = torch.cat([img_q, txt_q], dim=1)
-        k = torch.cat([img_k, txt_k], dim=1)
-        v = torch.cat([img_qkv[:, :, 2], txt_qkv[:, :, 2]], dim=1)
+        q = _cat([img_q, txt_q], dim=1)
+        k = _cat([img_k, txt_k], dim=1)
+        v = _cat([img_qkv[:, :, 2], txt_qkv[:, :, 2]], dim=1)
         return q, k, v
 
+    @obs.spanned("block")
     def forward(self, img, txt, vec, carve, rope_cos, rope_sin, seqlen,
                 tr=None, mesh=None, img_total=None):
         """``tr``: None, or the token replacement's ``vec`` (the t=0
@@ -509,6 +521,7 @@ class SingleBlock(nn.Module):
         self.q_norm = L.param((hd,), torch.float32, device)
         self.k_norm = L.param((hd,), torch.float32, device)
 
+    @obs.spanned("block")
     def forward(self, x, vec, carve, rope_cos, rope_sin, txt_len, seqlen,
                 tr=None, mesh=None, img_total=None):
         """``tr``: None, or the token replacement's ``vec`` and
@@ -531,13 +544,13 @@ class SingleBlock(nn.Module):
         k = L.rms_norm(qkv[:, :, 1], self.k_norm)
         v = qkv[:, :, 2]
         img_len = s - txt_len
-        q = torch.cat([L.apply_rope(q[:, :img_len], rope_cos, rope_sin),
-                       q[:, img_len:]], dim=1)
-        k = torch.cat([L.apply_rope(k[:, :img_len], rope_cos, rope_sin),
-                       k[:, img_len:]], dim=1)
+        q = _cat([L.apply_rope(q[:, :img_len], rope_cos, rope_sin),
+                  q[:, img_len:]], dim=1)
+        k = _cat([L.apply_rope(k[:, :img_len], rope_cos, rope_sin),
+                  k[:, img_len:]], dim=1)
         attn = _joint_attention(q, k, v, carve, img_len, seqlen, mesh,
                                 img_total)
-        out = self.linear2(torch.cat([attn, L.gelu_tanh(mlp)], dim=-1))
+        out = self.linear2(_cat([attn, L.gelu_tanh(mlp)], dim=-1))
         return _gate_tr(x, out, gate, tr_full, "gate")
 
 
@@ -581,6 +594,7 @@ class HYVideoDiT(nn.Module):
     def device(self):
         return next(self.parameters()).device
 
+    @obs.spanned("embed")
     def embed(self, x, t, text_states, text_mask, text_states_2,
               carve: HYCarve | None = None, guidance=None, mesh=None):
         """Patchify + curve reorder + refiner + modulation vector. With a
@@ -616,7 +630,8 @@ class HYVideoDiT(nn.Module):
             tr = dict(vec=tr_vec.float(), mask_img=mask_img,
                       mask_full=mask_full)
         if carve is not None:
-            img = img[:, carve.curve_order]
+            with obs.span("layout"):
+                img = img[:, carve.curve_order]
             rope_cos, rope_sin = carve.rope_cos, carve.rope_sin
         else:
             rope_cos, rope_sin = (torch.as_tensor(a, device=x.device)
@@ -641,6 +656,7 @@ class HYVideoDiT(nn.Module):
                     [mask_img, tr["mask_full"][aux["img_len"]:]]))
         return img, txt, aux
 
+    @obs.spanned("trunk")
     def trunk(self, img, txt, aux, carve: HYCarve | None = None,
               remat: bool = False, scan: bool = False, mesh=None):
         """Double + single block stack; img is curve-ordered in and out
@@ -665,12 +681,13 @@ class HYVideoDiT(nn.Module):
         for blk in self.double_blocks:
             img, txt = run(blk, img, txt, vec, carve, rope_cos, rope_sin,
                            seqlen, tr, *sp)
-        x = torch.cat([img, txt], dim=1)
+        x = _cat([img, txt], dim=1)
         for blk in self.single_blocks:
             x = run(blk, x, vec, carve, rope_cos, rope_sin, aux["txt_len"],
                     seqlen, tr, *sp)
         return x[:, :img.shape[1]]
 
+    @obs.spanned("head")
     def head(self, img, aux, carve: HYCarve | None = None, mesh=None):
         """Inverse curve + modulated final layer + unpatchify (f32 out). On
         a ``mesh`` the ranks' slices are gathered first: every rank
@@ -679,7 +696,8 @@ class HYVideoDiT(nn.Module):
         if mesh is not None:
             img = gather_tokens(img, token_mesh(mesh), aux["img_len"])
         if carve is not None:
-            img = img[:, carve.inverse_order]
+            with obs.span("layout"):
+                img = img[:, carve.inverse_order]
         fl = self.final_layer
         m = fl.adaLN(L.silu(aux["vec"])).float()
         d = cfg.hidden_size

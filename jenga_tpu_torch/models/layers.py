@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
+
 __all__ = [
     "linear", "rms_norm", "layer_norm", "gelu_tanh", "silu",
     "sinusoidal_embedding", "modulate", "patchify_3d", "unpatchify_3d",
@@ -113,6 +115,7 @@ def linear(p, x):
     return F.linear(x, w.to(x.dtype), p.b)
 
 
+@obs.spanned("norm")
 def rms_norm(x, weight=None, eps: float = 1e-6):
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
@@ -121,6 +124,7 @@ def rms_norm(x, weight=None, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+@obs.spanned("norm")
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
@@ -133,10 +137,12 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+@obs.spanned("act")
 def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+@obs.spanned("act")
 def silu(x):
     return F.silu(x)
 
@@ -153,6 +159,7 @@ def sinusoidal_embedding(dim: int, position, max_period: float = 10000.0,
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+@obs.spanned("modulate")
 def modulate(x, shift=None, scale=None):
     """x * (1 + scale) + shift in f32, cast back to x's dtype."""
     y = x.float()
@@ -170,12 +177,14 @@ def patchify_3d(p, x, patch):
     b, c, f, h, w = x.shape
     pt, ph, pw = patch
     gt, gh, gw = f // pt, h // ph, w // pw
-    x = x.reshape(b, c, gt, pt, gh, ph, gw, pw)
-    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
-    x = x.reshape(b, gt * gh * gw, c * pt * ph * pw)
+    with obs.span("layout"):
+        x = x.reshape(b, c, gt, pt, gh, ph, gw, pw)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+        x = x.reshape(b, gt * gh * gw, c * pt * ph * pw)
     return p(x), (gt, gh, gw)
 
 
+@obs.spanned("layout")
 def unpatchify_3d(x, grid, patch, out_channels: int,
                   channel_last: bool = False):
     """Inverse of patchify: [B, L, C*pt*ph*pw] -> [B, C, F, H, W]. The
@@ -221,6 +230,7 @@ def rope_table_3d(grid, dims, theta: float = 10000.0,
     return cos.copy(), sin.copy()
 
 
+@obs.spanned("rope")
 def apply_rope(x, cos, sin):
     """Rotate interleaved (even, odd) pairs of x [B, S, H, D] by cos/sin
     [S, D/2], in f32."""

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import obs
 from ..curves.blocks import build_curve_plan
 from ..ops.flash_attention import attention_bshd
 from ..ops.sparse_dispatch import sparse_attention_from_mask
@@ -279,6 +280,7 @@ def _self_qkv(p: WanAttention, x, cfg: WanConfig, rope_cos=None,
     return q, k, v
 
 
+@obs.spanned("planner")
 def _self_mask(qt, kt, carve: WanCarve, top_k=None):
     """The planner's selection [B, H, nb, nb] bool over [B, H, S_pad, D]
     q and k: the top ``top_k`` blocks (by default ``(1 - sa_drop_rate)``
@@ -344,7 +346,11 @@ def _self_attention(p: WanAttention, x, cfg: WanConfig,
             qt, kt, vt, mask, seqlens=carve.seqlen,
             text_start_block=num_blocks, q_rows=qr,
             joint=qr > 1 and carve.joint_sel).transpose(1, 2)
-    return p.o(out.reshape(b, s, d))
+    with obs.span("layout"):
+        # the transposes are views: their copy is made here (the carved
+        # and the mainloop dense outputs) and in the kernels' wrappers
+        out = out.reshape(b, s, d)
+    return p.o(out)
 
 
 def _cross_attention(p: WanAttention, x, context, cfg: WanConfig,
@@ -368,6 +374,7 @@ def _cross_attention(p: WanAttention, x, context, cfg: WanConfig,
     return p.o(out.reshape(b, s, d))
 
 
+@obs.spanned("modulate")
 def _gated(x, y, gate):
     return (x.float() + y.float() * gate).to(x.dtype)
 
@@ -398,6 +405,7 @@ class WanBlock(nn.Module):
         return L.modulate(L.layer_norm(x, eps=self.cfg.eps), shift=e0,
                           scale=e1)
 
+    @obs.spanned("block")
     def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None,
                 image_tokens: int = 0, mesh=None, length=None):
         """On a ``mesh``, x is this rank's slice of ``length`` tokens."""
@@ -459,6 +467,7 @@ class WanDiT(nn.Module):
         te = self.time_embedding
         return te.fc2(L.silu(te.fc1(temb))).float()
 
+    @obs.spanned("embed")
     def embed(self, x, t, context, carve: WanCarve | None = None,
               clip_fea=None, y=None, mesh=None):
         """Patchify, curve reorder (zero pad to a block multiple), time and
@@ -483,15 +492,17 @@ class WanDiT(nn.Module):
             ctx = torch.cat([img, ctx], dim=1)
             image_tokens = clip_fea.shape[1]
         if carve is not None:
-            h = h[:, carve.curve_order]
-            s_pad = -(-s // 128) * 128
-            h = torch.nn.functional.pad(h, (0, 0, 0, s_pad - s))
+            with obs.span("layout"):
+                h = h[:, carve.curve_order]
+                s_pad = -(-s // 128) * 128
+                h = torch.nn.functional.pad(h, (0, 0, 0, s_pad - s))
         aux = dict(e=e, e6=e6, ctx=ctx, grid=grid, seq=s,
                    image_tokens=image_tokens, seq_total=h.shape[1])
         if mesh is not None:
             h = shard_tokens(h, _token_mesh(mesh))
         return h, aux
 
+    @obs.spanned("trunk")
     def trunk(self, h, aux, carve: WanCarve | None = None, top_k=None,
               mesh=None, remat: bool = False):
         """The block stack over curve-ordered hidden states (the TeaCache
@@ -513,6 +524,7 @@ class WanDiT(nn.Module):
             h = L.remat_call(blk, *args) if remat else blk(*args)
         return h
 
+    @obs.spanned("head")
     def head(self, h, aux, carve: WanCarve | None = None, mesh=None):
         """Inverse curve order (dropping the pad), modulated zero-init head,
         unpatchify in Wan's feature order (f32 out). On a ``mesh`` the
@@ -521,7 +533,8 @@ class WanDiT(nn.Module):
         if mesh is not None:
             h = gather_tokens(h, _token_mesh(mesh), aux["seq_total"])
         if carve is not None:
-            h = h[:, carve.inverse_order]
+            with obs.span("layout"):
+                h = h[:, carve.inverse_order]
         hl = self.head_layer
         hm = hl.modulation[None].float() + aux["e"][:, None, :]
         out = L.modulate(L.layer_norm(h, eps=cfg.eps), shift=hm[:, 0:1],

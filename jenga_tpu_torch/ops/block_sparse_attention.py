@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..sparse.planner import MAX_MEMBER_ROWS
 from .attention_ref import block_sparse_attention_reference
 from .cuda_build import CSRC, build_library
@@ -168,17 +169,19 @@ def block_sparse_attention(q, k, v, indices, counts, seqlens, *,
     _check_operands(q, k, v, indices, counts, members, seqlens, q_rows)
     b, h, s, d = q.shape
     skv = k.shape[2]
-    if d < _HEAD_DIM:
-        # zero q/k pad lanes leave the logits unchanged; zero v pad lanes
-        # are sliced off (sm_scale is already fixed from the true d)
-        pad = (0, _HEAD_DIM - d)
-        q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    for x in (q, k, v):
-        if x.data_ptr() % 16:
-            raise ValueError("block_sparse_attention: operands must be "
-                             "16-byte aligned")
-    maxk = max_key_norms(k)
+    with obs.span("layout"):
+        if d < _HEAD_DIM:
+            # zero q/k pad lanes leave the logits unchanged; zero v pad
+            # lanes are sliced off (sm_scale is already fixed from the
+            # true d)
+            pad = (0, _HEAD_DIM - d)
+            q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        for x in (q, k, v):
+            if x.data_ptr() % 16:
+                raise ValueError("block_sparse_attention: operands must be "
+                                 "16-byte aligned")
+        maxk = max_key_norms(k)
     out = torch.empty_like(q)
     lib = build_kernel()
     err = lib.bsa_forward(

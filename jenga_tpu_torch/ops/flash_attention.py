@@ -48,6 +48,7 @@ import math
 
 import torch
 
+from .. import obs
 from .cuda_build import CSRC, build_library
 
 __all__ = ["dense_attention", "dense_attention_plain",
@@ -330,11 +331,12 @@ def dense_attention_forward(q, k, v, *, sm_scale: float | None = None,
         return _plain_forward(q, k, v, sm_scale, kv_len, with_lse)
     _check_operands("dense_attention", q, k, v)
     short = dense_route(skv) == "short"
-    if short:
-        q, k, v = (_map_operand(x) for x in (q, k, v))
-    else:
-        q, k, v = _contiguous("dense_attention", q, k, v)
-    kl = _kv_len_int32(kv_len, b, q.device)
+    with obs.span("layout"):
+        if short:
+            q, k, v = (_map_operand(x) for x in (q, k, v))
+        else:
+            q, k, v = _contiguous("dense_attention", q, k, v)
+        kl = _kv_len_int32(kv_len, b, q.device)
     kl_ptr = None if kl is None else kl.data_ptr()
     nqb = -(-sq // _BLOCK)
     lse = (torch.full((b, h, nqb * _BLOCK), float("inf"),

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..sparse.planner import (mask_to_block_lists,
                               mask_to_block_lists_grouped)
 from .attention_ref import block_sparse_attention_reference
@@ -56,6 +57,7 @@ def effective_mask(mask, q_rows: int, joint: bool):
         q_rows, dim=2)[:, :, :nqb]
 
 
+@obs.spanned("planner")
 def block_lists_from_mask(mask, q_rows: int, joint: bool = False):
     """The kernel's (indices, counts, members) for a one-hot mask: one
     list per row (``q_rows == 1``), or per group of ``q_rows`` rows (their
@@ -124,11 +126,12 @@ def sparse_attention_from_mask(qt, kt, vt, mask, *, seqlens=None,
     backward above)."""
     b = qt.shape[0]
     skv = kt.shape[2]
-    if seqlens is None:
-        sl = torch.full((b,), skv, dtype=torch.int32, device=qt.device)
-    else:
-        sl = torch.as_tensor(seqlens, device=qt.device).to(
-            torch.int32).reshape(-1).expand(b).contiguous()
+    with obs.span("layout"):
+        if seqlens is None:
+            sl = torch.full((b,), skv, dtype=torch.int32, device=qt.device)
+        else:
+            sl = torch.as_tensor(seqlens, device=qt.device).to(
+                torch.int32).reshape(-1).expand(b).contiguous()
     static = (int(text_start_block), float(text_amp), max(1, int(q_rows)),
               bool(joint))
     if torch.is_grad_enabled() and any(x.requires_grad

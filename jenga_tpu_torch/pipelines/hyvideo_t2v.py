@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.validate import validate_hy_options
 from ..diffusion.flow_match import flow_match_schedule
 from ..diffusion.prores import trilinear_resize
@@ -102,6 +103,14 @@ class HYVideoT2VPipeline:
         return fixed_compute_schedule(
             n, opts.non_skip_steps,
             stage_starts=[int(n * r) + 1 for r in opts.step_rate_list])
+
+    @staticmethod
+    def _step_kind(skip: bool, carve, grid, txt_len: int) -> str:
+        """A step's kind for its span: skip, carved or dense."""
+        if skip:
+            return "skip"
+        return "carved" if hy._carves(carve, math.prod(grid) + txt_len) \
+            else "dense"
 
     @torch.inference_mode()
     def generate(self, text_states, text_mask, text_states_2,
@@ -189,44 +198,53 @@ class HYVideoT2VPipeline:
         stage_idx = 0
         residual = None
         carve = carves[0]
+        clip = obs.next_clip()
         for i in range(n):
-            t = torch.full((batch,), schedule.timestep(i), device=dev)
-            x = latents if model_input is None else model_input(latents,
-                                                                stage_idx)
-            x = x.expand(batch, *x.shape[1:])
-            img, txth, aux = model.embed(x, t, txt, mask, txt2, carve,
-                                         guidance, self.mesh)
-            if not compute[i] and residual is not None:
-                v = model.head(img + residual, aux, carve, self.mesh)
-            else:
-                img2 = model.trunk(img, txth, aux, carve, mesh=self.mesh)
-                residual = img2 - img
-                v = model.head(img2, aux, carve, self.mesh)
-            if cfg_on:
-                v = v[0:1] + opts.guidance_scale * (v[1:2] - v[0:1])
-            switch = i in splits and stage_idx + 1 < len(carves)
-            if switch:
-                stage_idx += 1
-                carve = carves[stage_idx]
-                residual = None
-            if switch and opts.res_rate_list[stage_idx - 1] != 1.0:
-                # re-shift first: the x0 revert uses the new schedule
-                schedule = flow_match_schedule(
-                    n, shift=opts.scheduler_shift_list[stage_idx])
-                lat_shape = (1, nc, *shapes[stage_idx][0])
-                if stage_noises is not None and stage_idx in stage_noises:
-                    noise = torch.as_tensor(stage_noises[stage_idx],
-                                            dtype=torch.float32,
-                                            device=dev)[None]
+            skip = not compute[i] and residual is not None
+            with obs.step(clip, i, self._step_kind(skip, carve, shapes[
+                    stage_idx][1], txt.shape[1])):
+                t = torch.full((batch,), schedule.timestep(i), device=dev)
+                x = latents if model_input is None else model_input(
+                    latents, stage_idx)
+                x = x.expand(batch, *x.shape[1:])
+                img, txth, aux = model.embed(x, t, txt, mask, txt2, carve,
+                                             guidance, self.mesh)
+                if skip:
+                    v = model.head(img + residual, aux, carve, self.mesh)
                 else:
-                    noise = torch.randn(lat_shape, generator=gen, device=dev)
-                clean = trilinear_resize(schedule.predict_x0(i, latents, v),
-                                         lat_shape[2:])
-                latents = schedule.renoise_to_step(i + 1, clean, noise)
-            else:
-                latents = schedule.step(i, latents, v)
-            if pin is not None:
-                latents = pin(latents, stage_idx)
+                    img2 = model.trunk(img, txth, aux, carve, mesh=self.mesh)
+                    residual = img2 - img
+                    v = model.head(img2, aux, carve, self.mesh)
+                if cfg_on:
+                    with obs.span("guidance"):
+                        v = v[0:1] + opts.guidance_scale * (v[1:2] - v[0:1])
+                switch = i in splits and stage_idx + 1 < len(carves)
+                if switch:
+                    stage_idx += 1
+                    carve = carves[stage_idx]
+                    residual = None
+                with obs.span("solver"):
+                    if switch and opts.res_rate_list[stage_idx - 1] != 1.0:
+                        # re-shift first: the x0 revert uses the new schedule
+                        schedule = flow_match_schedule(
+                            n, shift=opts.scheduler_shift_list[stage_idx])
+                        lat_shape = (1, nc, *shapes[stage_idx][0])
+                        if (stage_noises is not None
+                                and stage_idx in stage_noises):
+                            noise = torch.as_tensor(
+                                stage_noises[stage_idx], dtype=torch.float32,
+                                device=dev)[None]
+                        else:
+                            noise = torch.randn(lat_shape, generator=gen,
+                                                device=dev)
+                        clean = trilinear_resize(
+                            schedule.predict_x0(i, latents, v), lat_shape[2:])
+                        latents = schedule.renoise_to_step(i + 1, clean,
+                                                           noise)
+                    else:
+                        latents = schedule.step(i, latents, v)
+                if pin is not None:
+                    latents = pin(latents, stage_idx)
             if on_step is not None:
                 on_step(i, latents[0])
         return latents[0]

@@ -43,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.validate import validate_wan_options
 from ..diffusion.prores import trilinear_resize
 from ..diffusion.skip import TEACACHE_COEFFS, teacache_compute_schedule
@@ -278,41 +279,47 @@ class WanT2VPipeline:
         state = mk_init(schedule)
         n = schedule.num_steps
         residual = None
+        clip = obs.next_clip()
         for idx, kind in enumerate(kinds):
-            t2 = torch.full((2,), schedule.timestep(idx), device=dev)
-            x2 = torch.cat([latents, latents])
-            h0, aux = model.embed(x2, t2, ctx2, carve, mesh=mesh, **cond)
-            if kind == "skip":
-                v2 = model.head(h0 + residual, aux, carve, mesh)
-            else:
-                if kind == "dense":
-                    h1 = model.trunk(h0, aux, dataclasses.replace(
-                        carve, sa_drop_rate=0.0), mesh=mesh)
+            with obs.step(clip, idx, kind):
+                t2 = torch.full((2,), schedule.timestep(idx), device=dev)
+                x2 = torch.cat([latents, latents])
+                h0, aux = model.embed(x2, t2, ctx2, carve, mesh=mesh, **cond)
+                if kind == "skip":
+                    v2 = model.head(h0 + residual, aux, carve, mesh)
                 else:
-                    drop = self._drop_rate(opts, idx, n)
-                    nb = math.ceil(carve.seqlen / 128)
-                    top_k = max(int(nb * (1.0 - drop)), 1)
-                    h1 = model.trunk(h0, aux, carve, top_k, mesh)
-                residual = h1 - h0
-                v2 = model.head(h1, aux, carve, mesh)
-            v = v2[1:2] + opts.guide_scale * (v2[0:1] - v2[1:2])
-            if idx == switch:
-                # x0, upsample, and re-noise on the first schedule's next
-                # sigma; then the shifted schedule with a fresh state (UniPC
-                # with the reference's corrector window)
-                clean = trilinear_resize(to_zero(schedule, idx, v, latents),
-                                         noise2.shape[2:])
-                latents = add_noise(schedule, idx + 1, clean, noise2)
-                schedule = scheds[1]
-                state = mk_init(schedule)
-                if opts.solver == "unipc":
-                    state = dataclasses.replace(
-                        state, disable_corrector=tuple(range(24, 38)))
-                state = dataclasses.replace(state, step_index=idx + 1)
-                carve = carves[1]
-                residual = None
-            else:
-                state, latents = do_step(schedule, state, v, latents)
+                    if kind == "dense":
+                        h1 = model.trunk(h0, aux, dataclasses.replace(
+                            carve, sa_drop_rate=0.0), mesh=mesh)
+                    else:
+                        drop = self._drop_rate(opts, idx, n)
+                        nb = math.ceil(carve.seqlen / 128)
+                        top_k = max(int(nb * (1.0 - drop)), 1)
+                        h1 = model.trunk(h0, aux, carve, top_k, mesh)
+                    residual = h1 - h0
+                    v2 = model.head(h1, aux, carve, mesh)
+                with obs.span("guidance"):
+                    v = v2[1:2] + opts.guide_scale * (v2[0:1] - v2[1:2])
+                with obs.span("solver"):
+                    if idx == switch:
+                        # x0, upsample, and re-noise on the first schedule's
+                        # next sigma; then the shifted schedule with a fresh
+                        # state (UniPC with the reference's corrector window)
+                        clean = trilinear_resize(
+                            to_zero(schedule, idx, v, latents),
+                            noise2.shape[2:])
+                        latents = add_noise(schedule, idx + 1, clean, noise2)
+                        schedule = scheds[1]
+                        state = mk_init(schedule)
+                        if opts.solver == "unipc":
+                            state = dataclasses.replace(
+                                state, disable_corrector=tuple(range(24, 38)))
+                        state = dataclasses.replace(state,
+                                                    step_index=idx + 1)
+                        carve = carves[1]
+                        residual = None
+                    else:
+                        state, latents = do_step(schedule, state, v, latents)
             if on_step is not None:
                 on_step(idx, latents[0])
         return latents[0]
