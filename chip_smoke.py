@@ -6,13 +6,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints its seconds; any failure exits non-zero before the
 result line):
   1. toolchain: torch/CUDA versions, nvcc, the card's name and power
-     limit; builds all eight kernel sources from jenga_tpu_torch/csrc/ (one
+     limit; builds all nine kernel sources from jenga_tpu_torch/csrc/ (one
      nvcc per source, started together; sm_90a) and prints ptxas' resource
      use; fails if ptxas reports spill stores or loads in a production
      instance (K1/K1m/K2 fixed and online max, D on both routes: the
      mainloop and the short-key kernel, D's backward on both routes: the
-     dK|dV and dQ kernels and the short-key call's three) or in P4, which
-     has its own Hopper design;
+     dK|dV and dQ kernels and the short-key call's three, the fused row
+     kernels) or in P4, which has its own Hopper design;
   2. kernels vs their plain torch versions on the card, max abs error
      <= 1e-2 in each case, each case timed against the plain version and
      beside its bound (the larger of its FLOPs over 989 TFLOP/s bf16 and
@@ -59,6 +59,15 @@ result line):
      its largest element; each kernel, the call and the plain backward
      timed beside their bounds and the SDPA backward (flash; with kv_len
      the efficient backend with a boolean key mask);
+  2b. the fused row kernels (ops/fused_rows.py) through the layers calls
+     the models make, at the benchmark cells' shapes: LayerNorm +
+     modulate at Wan 1.3B's [2, 32768, 1536], HunyuanVideo's [1, 115456,
+     3072] and Wan-14B's width 5120; RMSNorm + RoPE on Wan's q and on
+     HunyuanVideo's single-block q view of linear1's output with the RoPE
+     prefix; the gated residual at the Wan and HunyuanVideo shapes. Each
+     launches its kernel once (no fallback), within 1e-3 relative L2 error
+     of the chain it replaces, and is timed beside its bound (bytes over
+     3.35 TB/s) and the chain; a ``fused_rows:`` line gathers them;
   3. main path, HunyuanVideo T2V at full width and depth (3072 hidden, 24
      heads, 20 double + 40 single blocks, bf16, seeded random init on the
      card, head perturbed) through HunyuanVideoSampler.predict with the
@@ -301,8 +310,15 @@ result line):
      (f32 sums in another order), the gradients within 1e-2 relative L2,
      the empty sample all zeros, no kernel launched. A ``selection:``
      line gathers phase 19.
-No module of jax or jenga_tpu may be loaded. The last two lines are the
-kernels' JSON record and {"ok": true, "device": {...}}.
+Every counted path also reads the fused row kernels' launches and
+fallbacks (F1-F3) and the DiT's trunk and head calls; on each inference
+path of a bf16 DiT (phases 3-4e, 8-10, 11-14's generations, 19) they must
+be those calls' counts (``_row_counts``): no fallback but HunyuanVideo-
+I2V token replacement's per-token modulations and gates. Training, SP,
+checkpoints and batch paths are recorded only. No module of jax or
+jenga_tpu may be loaded. The last two lines are the kernels' JSON record
+(F1-F3 with ``launches_by_path`` and ``fallbacks_by_path``) and {"ok":
+true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -462,6 +478,7 @@ def phase_toolchain():
     from jenga_tpu_torch.ops import block_sparse_attention as bsa
     from jenga_tpu_torch.ops import cross_attention_resident as xr
     from jenga_tpu_torch.ops import flash_attention as fa
+    from jenga_tpu_torch.ops import fused_rows as fr
     from torch.utils.cpp_extension import CUDA_HOME
     t0 = phase("1. toolchain")
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -472,8 +489,8 @@ def phase_toolchain():
     print(f"gpu: {gpu_line()}")
     tb = time.perf_counter()
     # (source, build function, production): spills fail the production ones
-    sources = [(m.KERNEL_SOURCE, m.build_kernel, m in (bsa, fa, xr))
-               for m in (bsa, fa, ap, bp, xr)]
+    sources = [(m.KERNEL_SOURCE, m.build_kernel, m in (bsa, fa, xr, fr))
+               for m in (bsa, fa, ap, bp, xr, fr)]
     sources.append((fa.SHORT_KERNEL_SOURCE, fa.build_short_kernel, True))
     sources.append((fa.BWD_KERNEL_SOURCE, fa.build_bwd_kernel, True))
     sources.append((fa.BWD_SHORT_KERNEL_SOURCE, fa.build_bwd_short_kernel,
@@ -1230,6 +1247,125 @@ def phase_kernel_cases():
     done(t0)
     return recs, main, member, dense, extra
 
+# Phase 2b's bound on ||kernel - chain|| / ||chain||: the two paths differ
+# only in the order of the row sums, which moves a bf16 rounding at ~1e-5
+# of the elements by one unit (~2^-8 relative), ~1e-5 in all; a wrong
+# vector, head, table row or batch moves whole rows by their own size.
+ROW_REL_TOL = 1e-3
+# (case, cell): the fused row kernels' cases at the benchmark cells' shapes
+ROW_CELLS = {"wan_norm1_modulate": "Wan 1.3B self-attention input "
+             "[2, 32768, 1536]",
+             "hy_norm_modulate": "HunyuanVideo image stream [1, 115456, "
+             "3072]",
+             "wan14b_norm_modulate": "Wan-14B width [2, 32768, 5120]",
+             "wan_q_rms_rope": "Wan 1.3B self q [2, 32768, 1536], 12 heads",
+             "hy_single_q_rms_rope": "HunyuanVideo single-block q view of "
+             "linear1 [1, 115456, 24, 128], RoPE on 115,200 rows",
+             "wan_gated": "Wan 1.3B residual [2, 32768, 1536]",
+             "hy_gated": "HunyuanVideo joint residual [1, 115456, 3072]"}
+
+
+def phase_row_kernels():
+    """2b. The fused row kernels at the benchmark cells' shapes against the
+    chains they replace: each case's relative error within ROW_REL_TOL,
+    one launch of its kernel per call and no fallback; card ms (CUDA
+    events), bound ms (bf16 rows read and written once, f32 vectors and
+    tables read once, over 3.35 TB/s) and the chain's ms ("plain")."""
+    import torch
+    from jenga_tpu_torch.models import layers as L
+    from jenga_tpu_torch.ops import fused_rows as FR
+    from jenga_tpu_torch.tools._common import rel_err, sq_sums
+    t0 = phase("2b. fused row kernels vs their chains on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf16 = torch.bfloat16
+
+    def rows(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 2
+                + 0.5).to(bf16)
+
+    def vecs(b, d):
+        e = torch.randn((b, 6, d), generator=gen, device=dev) * 0.5
+        return e[:, 0:1], e[:, 1:2], e[:, 2:3]
+
+    def tables(n, hd=128):
+        ang = torch.rand((n, hd // 2), generator=gen, device=dev) * 6.3
+        return ang.cos(), ang.sin()
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def rope_chain(x, w, cos, sin, n_rope):
+        y = L.rms_norm(x, w)
+        heads = y.reshape(*y.shape[:2], -1, 128)
+        rot = L.apply_rope(heads[:, :n_rope], cos[:n_rope], sin[:n_rope])
+        return torch.cat([rot, heads[:, n_rope:]], 1).reshape(y.shape)
+
+    cases = []
+    for name, shape in (("wan_norm1_modulate", (2, 32768, 1536)),
+                        ("hy_norm_modulate", (1, 115456, 3072)),
+                        ("wan14b_norm_modulate", (2, 32768, 5120))):
+        x = rows(*shape)
+        shift, scale, _ = vecs(shape[0], shape[-1])
+        cases.append((name, FR.norm_modulate,
+                      lambda x=x, sh=shift, sc=scale: L.norm_modulate(
+                          x, shift=sh, scale=sc),
+                      lambda x=x, sh=shift, sc=scale: L.modulate(
+                          L.layer_norm(x), sh, sc),
+                      2 * nbytes(x) + 2 * nbytes(shift)))
+    x = rows(2, 32768, 1536)
+    w = torch.randn(1536, generator=gen, device=dev) * 0.2 + 1
+    cos, sin = tables(32768)
+    cases.append(("wan_q_rms_rope", FR.rms_norm_rope,
+                  lambda: L.rms_norm_rope(x, w, cos, sin),
+                  lambda: rope_chain(x, w, cos, sin, 32768),
+                  2 * nbytes(x) + nbytes(w, cos, sin)))
+    fused = rows(1, 115456, 21504)          # linear1's [qkv | mlp] output
+    q = fused[..., :9216].reshape(1, 115456, 3, 24, 128)[:, :, 0]
+    wq = torch.randn(128, generator=gen, device=dev) * 0.2 + 1
+    hcos, hsin = tables(115200)
+    cases.append(("hy_single_q_rms_rope", FR.rms_norm_rope,
+                  lambda: L.rms_norm_rope(q, wq, hcos, hsin,
+                                          rope_rows=115200),
+                  lambda: rope_chain(q, wq, hcos, hsin, 115200),
+                  2 * nbytes(q) + nbytes(wq, hcos, hsin)))
+    for name, shape in (("wan_gated", (2, 32768, 1536)),
+                        ("hy_gated", (1, 115456, 3072))):
+        a, b = rows(*shape), rows(*shape)
+        gate = vecs(shape[0], shape[-1])[2]
+        cases.append((name, FR.gated_residual,
+                      lambda a=a, b=b, g=gate: L.gated(a, b, g),
+                      lambda a=a, b=b, g=gate: (a.float() + b.float() * g)
+                      .to(bf16), 3 * nbytes(a) + nbytes(gate)))
+
+    recs = []
+    for name, counter, fn, chain, traffic in cases:
+        before = (counter.launches, counter.fallbacks)
+        out = fn()
+        torch.cuda.synchronize()
+        if (counter.launches - before[0], counter.fallbacks - before[1]) \
+                != (1, 0):
+            fail(f"{name}: the call did not launch its kernel once")
+        ref = chain()
+        err = rel_err(*sq_sums(out, ref))
+        if not torch.isfinite(out).all() or err > ROW_REL_TOL:
+            fail(f"{name}: relative error {err} (bound {ROW_REL_TOL})")
+        ms = time_ms(fn, 50)
+        plain_ms = time_ms(chain, 10)
+        bound_ms = traffic / PEAK_BYTES * 1e3
+        rec = {"case": name, "entry": counter.__name__,
+               "shape": ROW_CELLS[name], "ms": ms,
+               "bound_ms": bound_ms, "bound_by": "bytes",
+               "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+               "plain_over_kernel": plain_ms / ms, "rel_err": err,
+               "mismatched": (out != ref).float().mean().item()}
+        print("   " + json.dumps(rec), flush=True)
+        recs.append(rec)
+        del out, ref
+    print(f"   gpu: {gpu_line()}")
+    done(t0)
+    return recs
+
 
 def _perturb(model, gen, scale=0.02):
     """Seeded noise on the zero-initialised layers (final layer and the
@@ -1270,15 +1406,24 @@ BWD = ("dense_attn_bwd_dkv", "dense_attn_bwd_dq",
 NOT_SERVING = dict.fromkeys(PROBES + BWD, 0)
 
 
+ROWS = ("norm_modulate", "rms_norm_rope", "gated_residual")   # F1-F3
+ROW_RUNS = {}       # path -> its fused-row counts, for the kernels line
+
+
 class _Launches:
     """The kernels' launch counts over one path's run: set to 0 on entry,
     read on exit. The block-sparse wrapper counts its all-member launches
     (K1/K2) and its membership-mode launches (K1m) apart, D its launches
     and, among them, those of the short-key kernel, the probe wrapper its
     P1 and P2 launches, D's backward its dK|dV and dQ launches (over 512
-    keys) and its short-key calls."""
+    keys) and its short-key calls. Apart from those (``counts``),
+    ``rows`` holds the fused row kernels' launches and fallbacks, and
+    ``calls`` the DiTs' trunk and head calls that make them."""
 
     def __enter__(self):
+        from jenga_tpu_torch.models.hyvideo import HYVideoDiT
+        from jenga_tpu_torch.models.wan import WanDiT
+        from jenga_tpu_torch.ops import fused_rows
         from jenga_tpu_torch.ops.attention_probe import attention_probe
         from jenga_tpu_torch.ops.block_pool import block_pool
         from jenga_tpu_torch.ops.block_sparse_attention import (
@@ -1303,11 +1448,73 @@ class _Launches:
             "cross_attn_resident": (cross_attention_resident, "launches")}
         for fn, attr in self.counters.values():
             setattr(fn, attr, 0)
+        self.row_fns = {name: getattr(fused_rows, name) for name in ROWS}
+        for fn in self.row_fns.values():
+            fn.launches = fn.fallbacks = 0
+        self.calls = {"trunk": 0, "head": 0}
+        self.patched = [(cls, name, cls.__dict__[name])
+                        for cls in (WanDiT, HYVideoDiT)
+                        for name in ("trunk", "head")]
+        for cls, name, real in self.patched:
+            setattr(cls, name, self._counted(name, real))
         return self
 
+    def _counted(self, name, real):
+        def call(model, *args, **kwargs):
+            self.calls[name] += 1
+            return real(model, *args, **kwargs)
+        return call
+
     def __exit__(self, *exc):
+        for cls, name, real in reversed(self.patched):
+            setattr(cls, name, real)
         self.counts = {name: getattr(fn, attr)
                        for name, (fn, attr) in self.counters.items()}
+        self.rows = {**{n: fn.launches for n, fn in self.row_fns.items()},
+                     **{f"{n}.fallbacks": fn.fallbacks
+                        for n, fn in self.row_fns.items()}}
+
+
+def _row_counts(cfg, trunks: int, heads: int, tr: bool = False) -> dict:
+    """The fused-row counts that ``trunks`` trunk and ``heads`` head calls
+    of a bf16 inference run make. A Wan block: norm1 + modulate, the
+    cross-attention's q and k (and I2V's image k), norm3 and norm2 +
+    modulate through norm_modulate, q and k through rms_norm_rope, two
+    gated residuals. A HunyuanVideo double block: the image and the text
+    stream's two norms + modulate each and the text q and k RMS norms,
+    the image q and k through rms_norm_rope, four gated residuals; a
+    single block one norm + modulate, q and k, one gated residual. A head:
+    one norm + modulate. Under HunyuanVideo-I2V's token replacement
+    (``tr``) the image stream's modulations and gates are per token and
+    take the chain: fallbacks, 2 of each a double block, 1 a single."""
+    if hasattr(cfg, "num_layers"):
+        n = cfg.num_layers
+        norms = n * (4 + cfg.cross_attn_norm + (cfg.model_type == "i2v"))
+        rope, gated, tok = 2 * n, 2 * n, 0
+    else:
+        d, s = cfg.double_blocks, cfg.single_blocks
+        norms, rope, gated = 6 * d + s, 2 * d + 2 * s, 4 * d + s
+        tok = 2 * d + s if tr else 0
+    return {"norm_modulate": trunks * (norms - tok) + heads,
+            "rms_norm_rope": trunks * rope,
+            "gated_residual": trunks * (gated - tok),
+            "norm_modulate.fallbacks": trunks * tok,
+            "rms_norm_rope.fallbacks": 0,
+            "gated_residual.fallbacks": trunks * tok}
+
+
+def _rows_check(path: str, run: _Launches, cfg=None, tr: bool = False):
+    """Keep a path's fused-row counts for the kernels line; with ``cfg``
+    (an inference run with no autograd), fail unless its trunk calls ran
+    and the counts are ``_row_counts``' for its trunk and head calls."""
+    ROW_RUNS[path] = run.rows
+    print(f"   fused rows: {run.rows}; DiT calls {run.calls}")
+    if cfg is None:
+        return
+    want = _row_counts(cfg, run.calls["trunk"], run.calls["head"], tr)
+    if not run.calls["trunk"] or run.rows != want:
+        fail(f"{path}: fused-row counts {run.rows} != {want} (DiT calls "
+             f"{run.calls})")
 
 
 @contextlib.contextmanager
@@ -1408,6 +1615,7 @@ def phase_hy_main_path():
              f"{expect} (7 computed steps x 60 blocks)")
     if any(run.counts[p] for p in PROBES):
         fail(f"a probe kernel ran on the main path: {run.counts}")
+    _rows_check("hyvideo_t2v_base", run, cfg)
     done(t0)
     # phase 11 decodes these latents
     base = {"launches": run.counts, "step_s": timer.step_s,
@@ -1476,13 +1684,14 @@ def phase_hy_turbo(sampler, txt, mask, txt2):
             and amps.get(256 * 128) == {0.0}):
         fail(f"text_amp by stage {amps}: expected {HY_AMP0} at 142 blocks "
              f"and 0 at 256")
+    _rows_check("hyvideo_t2v_turbo_rowsel", run, cfg)
     del lat
     done(t0)
     return {"launches": run.counts, "stage_step_s": stage_s,
             "peak_gib": peak, "computed": computed, "density": density}
 
 
-def _wan_run(sampler, opts, kinds, ctx, null):
+def _wan_run(sampler, opts, kinds, ctx, null, path):
     """One Wan generation with launch counts, per-step times and the list
     density; checks the latents and the counts against the plan."""
     import torch
@@ -1511,6 +1720,7 @@ def _wan_run(sampler, opts, kinds, ctx, null):
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {cfg.num_layers} layers)")
+    _rows_check(path, run, cfg)
     return {"launches": run.counts, "step_s": timer.step_s,
             "peak_gib": peak, "schedule": kinds, "density": density,
             "latents": lat.cpu()}
@@ -1546,7 +1756,7 @@ def phase_wan_main_path():
           f"{opts.teacache_thresh}): schedule {kinds}")
     ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
     null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
-    base = _wan_run(sampler, opts, kinds, ctx, null)
+    base = _wan_run(sampler, opts, kinds, ctx, null, "wan_t2v_1.3b_base")
     done(t0)
 
     t0 = phase("4b. main path: Wan2.1 T2V 1.3B Turbo (joint q8), full "
@@ -1572,7 +1782,7 @@ def phase_wan_main_path():
     opts, kinds = chosen
     print(f"   chose sampling_steps={opts.sampling_steps}, "
           f"turbo_switch_step={opts.turbo_switch_step}: schedule {kinds}")
-    turbo = _wan_run(sampler, opts, kinds, ctx, null)
+    turbo = _wan_run(sampler, opts, kinds, ctx, null, "wan_t2v_1.3b_turbo")
     turbo["switch"] = opts.turbo_switch_step
     done(t0)
     turbo["selection"] = phase_selection_wan(sampler, ctx, null)
@@ -1585,10 +1795,10 @@ SEL_JAX_DENSITY = 0.2762    # BENCH_r05.json: the JAX bench's first-block
                             # density (and q4_union_frac), HY 720p x 125f
 
 
-def _selection(label, diagnose, forward, video_rows, expect):
+def _selection(label, diagnose, forward, video_rows, expect, path, cfg):
     """Phase 19a/19b: the diagnostic's mask (no launch) against the first
     planner mask of one carved forward on the same inputs (launches as
-    ``expect``); returns its record."""
+    ``expect``, fused-row counts as ``cfg``'s); returns its record."""
     import torch
     masks = []
     with torch.inference_mode():
@@ -1606,6 +1816,7 @@ def _selection(label, diagnose, forward, video_rows, expect):
         fail(f"{label}: the diagnostic launched kernels: {quiet.counts}")
     if run.counts != expect:
         fail(f"{label}: the forward's launches {run.counts} != {expect}")
+    _rows_check(path, run, cfg)
     if not torch.isfinite(out).all():
         fail(f"{label}: the forward's output is not finite")
     first = masks[0]
@@ -1662,7 +1873,8 @@ def phase_selection_hy(sampler, txt, mask, txt2):
         lambda: model(*args, carve=carve, guidance=g),
         -(-(32400 + txt.shape[0]) // 128) - opts.txt_block_num,
         {"block_sparse_attn": blocks, "block_sparse_attn_members": 0,
-         "dense_attn": 0, "dense_attn_short": 0, **NOT_SERVING})
+         "dense_attn": 0, "dense_attn_short": 0, **NOT_SERVING},
+        "selection_hyvideo_t2v_forward", cfg)
     group = max(2, opts.q_group)
     rec.update(density=sel.float().mean().item(),
                q4_union_frac=_union_frac(sel, group), union_group=group)
@@ -1698,7 +1910,8 @@ def phase_selection_wan(sampler, ctx, null):
         "Wan", lambda: wan_first_selection_mask(model, x, t, ctx2, carve),
         lambda: model(x, t, ctx2, carve=carve), 256,
         {"block_sparse_attn": layers, "block_sparse_attn_members": 0,
-         "dense_attn": layers, "dense_attn_short": layers, **NOT_SERVING})
+         "dense_attn": layers, "dense_attn_short": layers, **NOT_SERVING},
+        "selection_wan_t2v_1.3b_forward", cfg)
     rec.update(density=sel.float().mean().item(),
                first_frame_blocks=carve.first_frame_blocks)
     print(f"   density {rec['density']:.4f} (first_frame_blocks "
@@ -1778,7 +1991,7 @@ def _free():
 
 
 def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape,
-                decode=False):
+                path, decode=False):
     """One HunyuanVideo-I2V generation with launch counts; under
     token_replace frame 0 must equal the stage's conditioning latent bit
     for bit after every step. Checks the latents (with ``decode``, the
@@ -1826,6 +2039,8 @@ def _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2, expect_shape,
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} computed "
              f"steps x {blocks} blocks)")
+    _rows_check(path, run, cfg,
+                tr=opts.i2v_condition_type == "token_replace")
     return {"launches": run.counts, "step_s": timer.step_s,
             "peak_gib": peak, "computed": computed, "decode_s": decode_s}
 
@@ -1865,7 +2080,7 @@ def phase_hy_i2v_main_path():
                     for lat, _ in sampler.pipeline._stage_shapes(opts)]
         txt, mask, txt2 = _text(gen, cfg, n_pad=40)
         runs[cond] = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
-                                 (16, 9, 90, 160))
+                                 (16, 9, 90, 160), f"hyvideo_i2v_{cond}")
         del sampler, img_lats
         _free()
         done(t0)
@@ -1924,14 +2139,14 @@ def phase_wan_i2v_main_path():
         sampler, opts, kinds,
         lambda **kw: sampler.generate_i2v(img_lat, clip, ctx, null, frames,
                                           lat_h, lat_w, opts, **kw),
-        (16, 21, lat_h, lat_w))
+        (16, 21, lat_h, lat_w), "wan_i2v_14b")
     del sampler
     _free()
     done(t0)
     return out, (opts, kinds)
 
 
-def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape,
+def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape, path,
                  decode=False):
     """One Wan2.1-I2V generation at 832x480x81f, ``generate(on_step=,
     decode=)``, with launch counts and the list density; checks the
@@ -1971,6 +2186,7 @@ def _wan_i2v_run(sampler, opts, kinds, generate, expect_shape,
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
+    _rows_check(path, run, cfg)
     return {"launches": run.counts, "step_s": timer.step_s,
             "peak_gib": peak, "schedule": kinds, "density": density,
             "decode_s": decode_s}
@@ -2204,6 +2420,31 @@ def _bwd_entries(bwd, runs):
     return out
 
 
+def _row_entries(recs):
+    """F1-F3 for the kernels line: each fused-row entry point's launches
+    and fallbacks by path (``ROW_RUNS``) beside its phase 2b cases."""
+    out = []
+    for i, name in enumerate(ROWS):
+        mine = [r for r in recs if r["entry"] == name]
+        out.append({
+            "name": name, "id": f"F{i + 1}", "route": "cuda",
+            "source": "jenga_tpu_torch/csrc/fused_rows.cu",
+            "kernel": ("gated_residual_kernel" if name == "gated_residual"
+                       else "row_norm_kernel"),
+            "replaces": "no Pallas kernel: XLA fuses the chain",
+            "launches": sum(r[name] for r in ROW_RUNS.values()),
+            "launches_by_path": {p: r[name] for p, r in ROW_RUNS.items()},
+            "fallbacks_by_path": {p: r[f"{name}.fallbacks"]
+                                  for p, r in ROW_RUNS.items()},
+            "rel_err": max(r["rel_err"] for r in mine),
+            "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+            "bound_ms": mine[0]["bound_ms"], "bound_by": "bytes",
+            "cases": {r["case"]: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "share_of_bound")}
+                for r in mine}})
+    return out
+
+
 def _probe_entries(probes, runs):
     """The kernels-line entries of P1-P4, all at the tools' own shapes: ms
     of each variant; max_abs_err and rel_err over every variant checked;
@@ -2431,6 +2672,7 @@ def phase_hy_fp8(ref_weights, bf16_peak):
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({computed} "
              f"computed steps x {layers_n} blocks)")
+    _rows_check("hyvideo_t2v_base_fp8", run, cfg)
     del lat
 
     # one carved velocity with the fp8 weights (twice: run-to-run), then
@@ -2495,7 +2737,8 @@ def phase_wan_dpm():
     print(f"   chose sampling_steps={steps}: schedule {kinds}")
     ctx = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
     null = torch.randn((64, cfg.text_dim), generator=gen, device="cuda")
-    base = _wan_run(sampler, opts, kinds, ctx, null)
+    base = _wan_run(sampler, opts, kinds, ctx, null,
+                    "wan_t2v_1.3b_base_dpm")
     done(t0)
 
     t0 = phase("9b. Wan2.1 T2V 1.3B Turbo under dpm++, full width+depth")
@@ -2519,7 +2762,8 @@ def phase_wan_dpm():
     print(f"   chose sampling_steps={opts.sampling_steps}, "
           f"turbo_switch_step={opts.turbo_switch_step} (the fresh dpm++ "
           f"state at step {opts.turbo_switch_step + 1}): schedule {kinds}")
-    turbo = _wan_run(sampler, opts, kinds, ctx, null)
+    turbo = _wan_run(sampler, opts, kinds, ctx, null,
+                     "wan_t2v_1.3b_turbo_dpm")
     turbo["switch"] = opts.turbo_switch_step
     done(t0)
     turbo["selection"] = phase_selection_wan(sampler, ctx, null)
@@ -2559,6 +2803,7 @@ def phase_fidelity():
     if run.counts != expect:
         fail(f"kernel launches {run.counts} != {expect} ({n_dense} dense, "
              f"{n_carved} carved steps x {layers} layers)")
+    _rows_check("fidelity_wan_1.3b_q8_vs_dense", run, suite.sampler.cfg)
     if not 0.0 < row["relative_error"] <= 0.10:
         fail(f"carved vs dense relative error {row['relative_error']} "
              f"outside (0, 0.10]")
@@ -2685,7 +2930,8 @@ def phase_hy_vae(base_latents):
           f"mean|x| {img_lats[0].abs().mean().item():.6f}")
     txt, mask, txt2 = _text(gen, sampler.cfg, n_pad=40)
     run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
-                      (3, 33, 720, 1280), decode=True)
+                      (3, 33, 720, 1280), "hyvideo_i2v_token_replace_vae",
+                      decode=True)
     print(f"   gpu: {gpu_line()}")
     done(t0)
     run.update(seconds=time.perf_counter() - t0, encode_s=enc_s,
@@ -2775,7 +3021,7 @@ def phase_wan_vae(base_latents, i2v_plan):
         sampler, opts, kinds,
         lambda **kw: sampler.generate_i2v(img_lat, clip, ctx, null, 81, 60,
                                           104, opts, **kw),
-        (3, 81, 480, 832), decode=True)
+        (3, 81, 480, 832), "wan_i2v_14b_vae", decode=True)
     print(f"   gpu: {gpu_line()}")
     del img_lat
     done(t0)
@@ -2962,7 +3208,7 @@ def phase_hy_prompt(sampler, img, img_lats, gen):
     print(f"   text blocks: {text_block_count(txt)} for {txt.shape[0]} "
           f"tokens (the options carry {opts.txt_block_num})")
     run = _hy_i2v_run(sampler, opts, img_lats, txt, mask, txt2,
-                      (16, 9, 90, 160))
+                      (16, 9, 90, 160), "hyvideo_i2v_prompt")
     free = total - torch.cuda.memory_allocated() / 2**30
     # one carved step at 1280x720x125f takes 21.9 GiB above the resident
     # DiT (PERF.md section 5: 45.71 GiB peak with the 23.8 GiB DiT)
@@ -3024,7 +3270,7 @@ def phase_wan_prompt(sampler, opts, kinds, gen):
     run = _wan_i2v_run(
         sampler, opts, kinds,
         lambda **kw: sampler.generate_image(img, PROMPT, opts, **kw),
-        (3, 81, lat_h * 8, lat_w * 8), decode=True)
+        (3, 81, lat_h * 8, lat_w * 8), "wan_i2v_14b_prompt", decode=True)
     print(f"   gpu: {gpu_line()}")
     sampler.t5 = sampler.clip_vision = None
     del t5, clip
@@ -3653,6 +3899,7 @@ def phase_checkpoints():
                     out = card.predict_prompt(PROMPT, opts)
                     torch.cuda.synchronize()
                 _check_video(out, (3, 9, 128, 256))
+                _rows_check(f"checkpoints_hy_{label}", run)
                 if run.counts["block_sparse_attn"] + run.counts[
                         "dense_attn"] == 0:
                     fail(f"HY {label}: no attention kernel launched")
@@ -3693,6 +3940,7 @@ def phase_checkpoints():
                 with _Launches() as run:
                     out = card.generate_image(img, PROMPT, opts)
                     torch.cuda.synchronize()
+                _rows_check(f"checkpoints_wan_{label}", run)
                 if out.ndim != 4 or out.shape[:2] != (3, 9) or not \
                         torch.isfinite(out).all():
                     fail(f"Wan {label}: video {tuple(out.shape)} is not a "
@@ -3732,11 +3980,12 @@ def _lora_grad_norm(lora) -> float:
                          if x.grad is not None))
 
 
-def _train_steps(label, step, lora, base, batch, gen, n, expect):
+def _train_steps(label, step, lora, base, batch, gen, n, expect, path):
     """``n`` LoRA steps, each counted on its own: seconds, loss, the LoRA
     gradient's norm, peak memory and the launches per step; fails on a
     loss or norm that is not finite and positive, or on counts other than
-    ``expect``."""
+    ``expect``. The fused-row counts of the last step are kept (under
+    autograd the chains mostly fall back)."""
     import torch
     rows, total = [], dict.fromkeys(expect, 0)
     for i in range(n):
@@ -3758,6 +4007,7 @@ def _train_steps(label, step, lora, base, batch, gen, n, expect):
             fail(f"{label} step {i}: loss {loss}, LoRA grad norm {norm}")
         if run.counts != expect:
             fail(f"{label} step {i}: launches {run.counts} != {expect}")
+        _rows_check(path, run)
         rows.append({"s": secs, "loss": loss, "grad_norm": norm,
                      "peak_gib": peak})
         total = {k: total[k] + v for k, v in run.counts.items()}
@@ -3832,7 +4082,7 @@ def phase_train_wan():
                                    {"carve": cv, "remat": True})
         step = make_lora_train_step(apply, tcfg, opt)
         runs[label] = _train_steps(f"16 {label}", step, lora, base, batch,
-                                   gen, n, expect)
+                                   gen, n, expect, f"train_wan_1.3b_{label}")
 
     # the adapters through the reference's kohya layout and merge_lora
     # (on the CPU, as a checkpoint load merges) against apply_lora
@@ -3918,7 +4168,8 @@ def phase_train_hy_i2v():
         step = make_lora_train_step(apply, TransportConfig(shift=7.0), opt,
                                     i2v_condition_type="token_replace")
         runs[label] = _train_steps(f"16b {label}", step, lora, base, batch,
-                                   gen, 1, expect)
+                                   gen, 1, expect,
+                                   f"train_hyvideo_i2v_{label}")
     print(f"   gpu: {gpu_line()}")
     del model, base, lora, opt, batch
     _free()
@@ -3959,7 +4210,7 @@ def _recorded_masks(masks):
         yield
 
 
-def _sp_step(label, fwd, mesh, layers, expect):
+def _sp_step(label, fwd, mesh, layers, expect, path):
     """One step through ``fwd(mesh)`` and the same without a mesh: the
     planner masks equal, the outputs within SP_REL_TOL, the SP run's
     launches as ``expect``; then both timed in turns (plain, SP, SP,
@@ -3987,6 +4238,7 @@ def _sp_step(label, fwd, mesh, layers, expect):
              f"forward's ({len(sp_masks)} vs {len(plain_masks)} calls)")
     if run.counts != expect:
         fail(f"{label}: launches {run.counts} != {expect}")
+    _rows_check(path, run)
     del plain_masks, sp_masks, got
     secs = {"plain": [], "sp": []}
     with torch.inference_mode():
@@ -4029,7 +4281,8 @@ def _sp_hy(mesh):
         return model(x, t, txt[None], mask[None], txt2[None], carve=carve,
                      guidance=g, mesh=mesh)
     return _sp_step("17a HunyuanVideo T2V Base, joint q8", fwd, mesh,
-                    layers, _counts(block_sparse_attn=layers))
+                    layers, _counts(block_sparse_attn=layers),
+                    "sp_hyvideo_t2v_world1")
 
 
 def _wan_sp_setup(sp_degree: int = 1):
@@ -4074,7 +4327,8 @@ def _sp_wan(mesh):
     return _sp_step("17b Wan2.1-T2V-1.3B Base carved CFG step, joint q8",
                     fwd, mesh, layers,
                     _counts(block_sparse_attn=layers, dense_attn=layers,
-                            dense_attn_short=layers))
+                            dense_attn_short=layers),
+                    "sp_wan_t2v_1.3b_world1")
 
 
 SP_GLOO_RANKS = 2
@@ -4101,7 +4355,7 @@ def sp_gloo_rank(rank: int, store: str, out_dir: str):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t1
         torch.save({"out": out.cpu(), "launches": run.counts,
-                    "seconds": secs}, os.path.join(out_dir, f"{rank}.pt"))
+                    "rows": run.rows, "seconds": secs}, os.path.join(out_dir, f"{rank}.pt"))
     finally:
         dist.destroy_process_group()
     print("SP_RANK_OK", flush=True)
@@ -4143,6 +4397,8 @@ def _sp_gloo(want):
                               for r in ranks)}
     print(f"   17e Wan2.1-T2V-1.3B at sp=2 on gloo (two ranks, one card): "
           f"{rec}")
+    ROW_RUNS["sp_wan_t2v_1.3b_gloo_sp2"] = {
+        k: sum(r["rows"][k] for r in ranks) for k in ranks[0]["rows"]}
     if not rec["ranks_equal"]:
         fail("17e: the ranks' gathered outputs differ")
     if max(rec["rel_err"]) > SP_GLOO_REL_TOL:
@@ -4261,7 +4517,7 @@ def generate(self, context, context_null, opts, *a, **k):
 WanT2VPipeline.generate = generate
 with S._Launches() as run:
     cli.main(sys.argv[1:])
-print(json.dumps({"launches": run.counts, "plans": plans,
+print(json.dumps({"launches": run.counts, "rows": run.rows, "plans": plans,
                   "item_s": item_s}))
 """
 BATCH_SIZE = ["--infer-steps", "6", "--video-size", "832", "480",
@@ -4284,6 +4540,7 @@ def _batch_child(argv, label):
     if "FAILED" in proc.stdout:     # the batch logs a failed item, goes on
         fail(f"18a {label}: an item failed:\n{proc.stdout[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    ROW_RUNS[f"wan_t2v_1.3b {label}"] = rec["rows"]
     print(f"   {label}: {secs:.3f} s in all, seconds per item "
           f"{[round(s, 4) for s in rec['item_s']]}, schedules "
           f"{rec['plans']}, kernel launches {rec['launches']}", flush=True)
@@ -4681,6 +4938,7 @@ def main():
     t_all = time.perf_counter()
     phase_toolchain()
     recs, main_rec, member, dense, extra = phase_kernel_cases()
+    rows = phase_row_kernels()
     hy, hy_turbo, fp8_ref = phase_hy_main_path()
     wan, wan_turbo = phase_wan_main_path()
     causal = phase_causal()
@@ -4851,7 +5109,8 @@ def main():
         "library_ms": image_cross["library_ms"],
         "design": SHORT_DESIGN,
         "cases": short_cases,
-    }] + _bwd_entries(extra["bwd"], runs) + _probe_entries(probes, runs)}
+    }] + _bwd_entries(extra["bwd"], runs) + _probe_entries(probes, runs)
+        + _row_entries(rows)}
     vae = {name: {k: v for k, v in rec.items()
                   if k not in ("launches", "step_s", "schedule")}
            for name, rec in (("11_hy_decode", hy_vae),
@@ -4868,6 +5127,7 @@ def main():
     print("train: " + json.dumps({"16_wan_1.3b": train,
                                   "16b_hyvideo_i2v": train_hy}))
     print("sp: " + json.dumps(sp))
+    print("fused_rows: " + json.dumps({"2b": rows, "gpu": gpu_line()}))
     print("batch: " + json.dumps({"18a_batch": batch, "18b_decode": decode,
                                   "18c_expanders": expanders}))
     print("selection: " + json.dumps({

@@ -259,30 +259,23 @@ class TokenRefiner(nn.Module):
         return x
 
 
-@obs.spanned("modulate")
-def _gated(x, y, gate):
-    return (x.float() + y.float() * gate).to(x.dtype)
-
-
 def _mod_tr(x, shift, scale, tr, which):
-    """Modulate; under token replacement the first-frame tokens (``tr``'s
-    mask) take the t=0 (shift, scale) pair ``tr[which]``."""
-    xn = L.layer_norm(x)
-    y = L.modulate(xn, shift=shift, scale=scale)
+    """Layer-norm and modulate; under token replacement (the plain chain)
+    the first-frame tokens (``tr``'s mask) take the t=0 (shift, scale)
+    pair ``tr[which]``."""
     if tr is None:
-        return y
-    tr_shift, tr_scale = tr[which]
-    y_tr = L.modulate(xn, shift=tr_shift, scale=tr_scale)
-    return torch.where(tr["mask"][None, :, None], y_tr, y)
+        return L.norm_modulate(x, shift=shift, scale=scale)
+    return L.norm_modulate_tokens(x, shift, scale, tr["mask"], *tr[which])
 
 
 def _gate_tr(x, y, gate, tr, which):
     """Gated residual add; under token replacement the first-frame tokens
-    take the t=0 gate ``tr[which]``."""
+    take the t=0 gate ``tr[which]``: a gate per token, which the kernel
+    does not take."""
     g = gate.float()
     if tr is not None:
         g = torch.where(tr["mask"][None, :, None], tr[which].float(), g)
-    return _gated(x, y, g)
+    return L.gated(x, y, g)
 
 
 def _tr_chunks(mod: L.Affine, tr_vec, n: int):
@@ -466,15 +459,15 @@ class DoubleBlock(nn.Module):
         n, hd = self.cfg.heads_num, self.cfg.head_dim
         img_mod = _mod_tr(img, im[0], im[1], tr_img, "mod1")
         img_qkv = self.img_qkv(img_mod).reshape(b, si, 3, n, hd)
-        img_q = L.rms_norm(img_qkv[:, :, 0], self.img_q_norm)
-        img_k = L.rms_norm(img_qkv[:, :, 1], self.img_k_norm)
-        img_q = L.apply_rope(img_q, rope_cos, rope_sin)
-        img_k = L.apply_rope(img_k, rope_cos, rope_sin)
+        img_q = L.rms_norm_rope(img_qkv[:, :, 0], self.img_q_norm, rope_cos,
+                                rope_sin)
+        img_k = L.rms_norm_rope(img_qkv[:, :, 1], self.img_k_norm, rope_cos,
+                                rope_sin)
 
-        txt_mod = L.modulate(L.layer_norm(txt), shift=tm[0], scale=tm[1])
+        txt_mod = L.norm_modulate(txt, shift=tm[0], scale=tm[1])
         txt_qkv = self.txt_qkv(txt_mod).reshape(b, st, 3, n, hd)
-        txt_q = L.rms_norm(txt_qkv[:, :, 0], self.txt_q_norm)
-        txt_k = L.rms_norm(txt_qkv[:, :, 1], self.txt_k_norm)
+        txt_q = L.norm_modulate(txt_qkv[:, :, 0], self.txt_q_norm, rms=True)
+        txt_k = L.norm_modulate(txt_qkv[:, :, 1], self.txt_k_norm, rms=True)
 
         q = _cat([img_q, txt_q], dim=1)
         k = _cat([img_k, txt_k], dim=1)
@@ -500,10 +493,10 @@ class DoubleBlock(nn.Module):
         y = self.img_mlp.fc2(L.gelu_tanh(self.img_mlp.fc1(y)))
         img = _gate_tr(img, y, im[5], tr_img, "gate2")
 
-        txt = _gated(txt, self.txt_proj(txt_attn), tm[2])
-        y = L.modulate(L.layer_norm(txt), shift=tm[3], scale=tm[4])
+        txt = L.gated(txt, self.txt_proj(txt_attn), tm[2])
+        y = L.norm_modulate(txt, shift=tm[3], scale=tm[4])
         y = self.txt_mlp.fc2(L.gelu_tanh(self.txt_mlp.fc1(y)))
-        txt = _gated(txt, y, tm[5])
+        txt = L.gated(txt, y, tm[5])
         return img, txt
 
 
@@ -540,14 +533,12 @@ class SingleBlock(nn.Module):
         y = self.linear1(x_mod)
         qkv, mlp = y[..., :3 * d], y[..., 3 * d:]
         qkv = qkv.reshape(b, s, 3, n, hd)
-        q = L.rms_norm(qkv[:, :, 0], self.q_norm)
-        k = L.rms_norm(qkv[:, :, 1], self.k_norm)
-        v = qkv[:, :, 2]
         img_len = s - txt_len
-        q = _cat([L.apply_rope(q[:, :img_len], rope_cos, rope_sin),
-                  q[:, img_len:]], dim=1)
-        k = _cat([L.apply_rope(k[:, :img_len], rope_cos, rope_sin),
-                  k[:, img_len:]], dim=1)
+        q = L.rms_norm_rope(qkv[:, :, 0], self.q_norm, rope_cos, rope_sin,
+                            rope_rows=img_len)
+        k = L.rms_norm_rope(qkv[:, :, 1], self.k_norm, rope_cos, rope_sin,
+                            rope_rows=img_len)
+        v = qkv[:, :, 2]
         attn = _joint_attention(q, k, v, carve, img_len, seqlen, mesh,
                                 img_total)
         out = self.linear2(_cat([attn, L.gelu_tanh(mlp)], dim=-1))
@@ -701,8 +692,8 @@ class HYVideoDiT(nn.Module):
         fl = self.final_layer
         m = fl.adaLN(L.silu(aux["vec"])).float()
         d = cfg.hidden_size
-        out = L.modulate(L.layer_norm(img), shift=m[:, None, :d],
-                         scale=m[:, None, d:])
+        out = L.norm_modulate(img, shift=m[:, None, :d],
+                              scale=m[:, None, d:])
         out = fl.linear(out)
         return L.unpatchify_3d(out.float(), aux["grid"], cfg.patch_size,
                                cfg.out_channels)

@@ -13,6 +13,15 @@ layer may hold its weight in fp8 (``models/fp8.py``); ``linear``
 dequantizes it before the product. The
 parameter holders shared by the DiTs (``Affine``, ``Norm``, ``MLP``) and
 their JAX-distributed random init live here too.
+
+The DiT trunk calls its chains through ``norm_modulate``, ``rms_norm_rope``
+and ``gated``: each launches one fused kernel (``ops/fused_rows.py``)
+where the input suits it, and otherwise runs the chain of the plain
+functions here (``layer_norm`` or ``rms_norm``, then ``modulate`` or
+``apply_rope``; the gated residual in torch), which are also what the
+JAX-parity tests hold. A kernel launches inside the span of the chain it
+replaces: ``norm`` for the first two, ``modulate`` for ``gated``.
+``norm_modulate_tokens`` (a modulation per token) is always the chain.
 """
 
 from __future__ import annotations
@@ -26,12 +35,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import obs
+from ..ops import fused_rows as FR
 
 __all__ = [
     "linear", "rms_norm", "layer_norm", "gelu_tanh", "silu",
-    "sinusoidal_embedding", "modulate", "patchify_3d", "unpatchify_3d",
-    "rope_table_1d", "rope_table_3d", "apply_rope", "param", "Affine",
-    "Norm", "MLP", "init_affine_or_norm_", "remat_call",
+    "sinusoidal_embedding", "modulate", "norm_modulate",
+    "norm_modulate_tokens", "rms_norm_rope", "gated", "patchify_3d", "unpatchify_3d", "rope_table_1d",
+    "rope_table_3d", "apply_rope", "param", "Affine", "Norm", "MLP",
+    "init_affine_or_norm_", "remat_call",
 ]
 
 
@@ -168,6 +179,72 @@ def modulate(x, shift=None, scale=None):
     if shift is not None:
         y = y + shift.float()
     return y.to(x.dtype)
+
+
+def norm_modulate(x, weight=None, bias=None, shift=None, scale=None,
+                  eps: float = 1e-6, rms: bool = False):
+    """``modulate(layer_norm(x, weight, bias, eps), shift, scale)``, or
+    ``rms_norm(x, weight, eps)`` with ``rms``; without ``shift`` and
+    ``scale`` the norm alone. One kernel where ``fused_rows.row_refusal``
+    takes the input, else that chain."""
+    if FR.row_refusal(x, weight, bias, shift, scale) is None:
+        with obs.span("norm"):
+            return FR.launch_row_norm(x, weight, bias, shift, scale,
+                                      eps=eps, rms=rms)
+    FR.norm_modulate.fallbacks += x.is_cuda
+    y = rms_norm(x, weight, eps) if rms else layer_norm(x, weight, bias, eps)
+    if shift is None and scale is None:
+        return y
+    return modulate(y, shift, scale)
+
+
+def norm_modulate_tokens(x, shift, scale, mask, shift_at, scale_at,
+                         eps: float = 1e-6):
+    """``layer_norm(x, eps)`` modulated by ``(shift_at, scale_at)`` at the
+    tokens of ``mask`` ([S] bool) and by ``(shift, scale)`` elsewhere: a
+    modulation per token, which the kernel does not take, so always the
+    chain (a fallback on a CUDA device)."""
+    FR.norm_modulate.fallbacks += x.is_cuda
+    xn = layer_norm(x, eps=eps)
+    y = modulate(xn, shift=shift, scale=scale)
+    y_at = modulate(xn, shift=shift_at, scale=scale_at)
+    return torch.where(mask[None, :, None], y_at, y)
+
+
+def rms_norm_rope(x, weight, cos, sin, eps: float = 1e-6,
+                  rope_rows: int | None = None):
+    """``rms_norm(x, weight, eps)`` over the last dim, then ``apply_rope``
+    on its heads (``2 * cos.shape[1]`` elements each) over the first
+    ``rope_rows`` tokens (dim 1; all by default) by the rows of cos/sin;
+    the later tokens are normed only. x [B, S, R] or a [B, S, G, R] view;
+    the result is shaped as x. One kernel where
+    ``fused_rows.row_refusal`` takes the input, else that chain."""
+    s = x.shape[1]
+    rope_rows = s if rope_rows is None else rope_rows
+    if FR.row_refusal(x, weight, cos=cos, sin=sin,
+                      rope_rows=rope_rows) is None:
+        with obs.span("norm"):
+            return FR.launch_row_norm(x, weight, cos=cos, sin=sin,
+                                      rope_rows=rope_rows, eps=eps, rms=True)
+    FR.rms_norm_rope.fallbacks += x.is_cuda
+    y = rms_norm(x, weight, eps)
+    heads = y.reshape(*y.shape[:2], -1, 2 * cos.shape[-1])
+    out = apply_rope(heads[:, :rope_rows], cos[:rope_rows], sin[:rope_rows])
+    if rope_rows < s:
+        with obs.span("layout"):
+            out = torch.cat([out, heads[:, rope_rows:]], dim=1)
+    return out.reshape(y.shape)
+
+
+@obs.spanned("modulate")
+def gated(x, y, gate):
+    """The gated residual ``x + y * gate`` in f32, cast to x's dtype: one
+    kernel where ``fused_rows.gated_refusal`` takes the input, else in
+    torch."""
+    if FR.gated_refusal(x, y, gate) is None:
+        return FR.launch_gated(x, y, gate)
+    FR.gated_residual.fallbacks += x.is_cuda
+    return (x.float() + y.float() * gate).to(x.dtype)
 
 
 def patchify_3d(p, x, patch):

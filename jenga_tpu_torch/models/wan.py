@@ -271,13 +271,14 @@ def _self_qkv(p: WanAttention, x, cfg: WanConfig, rope_cos=None,
     ``wan_first_selection_mask``."""
     b, s, d = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
-    q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
-    k = L.rms_norm(p.k(x), p.norm_k, cfg.eps).reshape(b, s, n, hd)
+    if rope_cos is None:
+        q = L.norm_modulate(p.q(x), p.norm_q, eps=cfg.eps, rms=True)
+        k = L.norm_modulate(p.k(x), p.norm_k, eps=cfg.eps, rms=True)
+    else:
+        q = L.rms_norm_rope(p.q(x), p.norm_q, rope_cos, rope_sin, cfg.eps)
+        k = L.rms_norm_rope(p.k(x), p.norm_k, rope_cos, rope_sin, cfg.eps)
     v = p.v(x).reshape(b, s, n, hd)
-    if rope_cos is not None:
-        q = L.apply_rope(q, rope_cos, rope_sin)
-        k = L.apply_rope(k, rope_cos, rope_sin)
-    return q, k, v
+    return q.reshape(b, s, n, hd), k.reshape(b, s, n, hd), v
 
 
 @obs.spanned("planner")
@@ -361,22 +362,19 @@ def _cross_attention(p: WanAttention, x, context, cfg: WanConfig,
     text attention's."""
     b, s, d = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
-    q = L.rms_norm(p.q(x), p.norm_q, cfg.eps).reshape(b, s, n, hd)
+    q = L.norm_modulate(p.q(x), p.norm_q, eps=cfg.eps,
+                        rms=True).reshape(b, s, n, hd)
     ctx_img, ctx = context[:, :image_tokens], context[:, image_tokens:]
-    k = L.rms_norm(p.k(ctx), p.norm_k, cfg.eps).reshape(b, -1, n, hd)
+    k = L.norm_modulate(p.k(ctx), p.norm_k, eps=cfg.eps,
+                        rms=True).reshape(b, -1, n, hd)
     v = p.v(ctx).reshape(b, -1, n, hd)
     out = attention_bshd(q, k, v)
     if image_tokens:
-        k_img = L.rms_norm(p.k_img(ctx_img), p.norm_k_img,
-                           cfg.eps).reshape(b, -1, n, hd)
+        k_img = L.norm_modulate(p.k_img(ctx_img), p.norm_k_img, eps=cfg.eps,
+                                rms=True).reshape(b, -1, n, hd)
         v_img = p.v_img(ctx_img).reshape(b, -1, n, hd)
         out = out + attention_bshd(q, k_img, v_img)
     return p.o(out.reshape(b, s, d))
-
-
-@obs.spanned("modulate")
-def _gated(x, y, gate):
-    return (x.float() + y.float() * gate).to(x.dtype)
 
 
 class WanBlock(nn.Module):
@@ -402,8 +400,7 @@ class WanBlock(nn.Module):
 
     def self_attn_input(self, x, e0, e1):
         """The self-attention's input: x layer-normed and modulated."""
-        return L.modulate(L.layer_norm(x, eps=self.cfg.eps), shift=e0,
-                          scale=e1)
+        return L.norm_modulate(x, shift=e0, scale=e1, eps=self.cfg.eps)
 
     @obs.spanned("block")
     def forward(self, x, e6, context, carve, rope_cos, rope_sin, top_k=None,
@@ -414,14 +411,14 @@ class WanBlock(nn.Module):
         y = self.self_attn_input(x, e0, e1)
         y = _self_attention(self.self_attn, y, cfg, carve, rope_cos,
                             rope_sin, top_k, mesh, length)
-        x = _gated(x, y, e2)
-        y = L.layer_norm(x, self.norm3.w, self.norm3.b, cfg.eps) \
+        x = L.gated(x, y, e2)
+        y = L.norm_modulate(x, self.norm3.w, self.norm3.b, eps=cfg.eps) \
             if cfg.cross_attn_norm else x
         x = x + _cross_attention(self.cross_attn, y, context, cfg,
                                  image_tokens)
-        y = L.modulate(L.layer_norm(x, eps=cfg.eps), shift=e3, scale=e4)
+        y = L.norm_modulate(x, shift=e3, scale=e4, eps=cfg.eps)
         y = self.ffn.fc2(L.gelu_tanh(self.ffn.fc1(y)))
-        return _gated(x, y, e5)
+        return L.gated(x, y, e5)
 
 
 class WanHead(nn.Module):
@@ -537,8 +534,8 @@ class WanDiT(nn.Module):
                 h = h[:, carve.inverse_order]
         hl = self.head_layer
         hm = hl.modulation[None].float() + aux["e"][:, None, :]
-        out = L.modulate(L.layer_norm(h, eps=cfg.eps), shift=hm[:, 0:1],
-                         scale=hm[:, 1:2])
+        out = L.norm_modulate(h, shift=hm[:, 0:1], scale=hm[:, 1:2],
+                              eps=cfg.eps)
         out = hl.linear(out)
         return L.unpatchify_3d(out.float(), aux["grid"], cfg.patch_size,
                                cfg.out_dim, channel_last=True)
