@@ -42,7 +42,3 @@ def gemm_flop(cfg: dict, latent_shape, text_len: int) -> float:
     return float(cfg["double_blocks"] * double + cfg["single_blocks"] * single
                  + refiner + embed + head)
 
-
-def dense_launches(cfg: dict, latent_shape, text_len: int) -> dict:
-    """The carved cells launch no D: the joint attention is K1's."""
-    return {}

@@ -7,8 +7,6 @@ too). Matmul operations count 2 per multiply-add.
 
 from __future__ import annotations
 
-from . import roofline as R
-
 
 def tokens(cfg: dict, latent_shape):
     """(real tokens, padded tokens, text tokens) of latents [C, F, H, W]."""
@@ -36,12 +34,3 @@ def gemm_flop(cfg: dict, latent_shape, batch: int = 2) -> float:
     head = 2 * s * d * out
     return float(batch * (cfg["num_layers"] * per_block + embed + head))
 
-
-def dense_launches(cfg: dict, latent_shape, batch: int = 2) -> dict:
-    """(operations, bytes) of each D launch by route: ``short`` the
-    cross-attention over the text keys, ``long`` the dense fallback's
-    self-attention over every padded token."""
-    n, hd = cfg["num_heads"], cfg["dim"] // cfg["num_heads"]
-    _, s_pad, lt = tokens(cfg, latent_shape)
-    return {"short": R.dense_attention(batch, n, s_pad, lt, hd),
-            "long": R.dense_attention(batch, n, s_pad, s_pad, hd)}

@@ -27,13 +27,40 @@ that builds them (the line's ``setup_split`` gives their seconds apart,
 under ``torch.profiler`` and reports the per-layer metrics that
 ``BENCHMARK.json`` lists for the cell, each read by
 ``benchmark/metrics/<name>.py`` from the trace, the program's counters
-and the cell's shapes.
+and the cell's shapes. K1 is priced by the tiles of the block lists each
+launch was given, D by each launch's own shape as the probe observed it
+(``benchmark/tracing.py``). In either mode a thread samples the card's SM
+clock, power draw and clock-event reasons over the window
+(``benchmark/clock.py``); the line's ``device`` gains ``sm_clock_mhz``,
+``power_w`` and ``throttle`` from them.
 
 Once the window has closed, the peak memory is read, the program is
 freed and the plain reference (``benchmark/reference/``) checks a step of
 the window drawn from the seed (and the clip's start): ``correct`` is
 whether every number lies within its limit in the cell's file. The last
 line of standard output is the result as JSON.
+
+Adding a configuration takes new files and new entries alone; the
+harness and its tests find each piece by name:
+
+- ``benchmark/configs/<config>.json``: the sizes as run, the published
+  source, ``reduced``, and ``family``, which names the system module;
+- ``benchmark/workloads/<cell>.json``: the configuration, ``chips``, the
+  sampler's options, ``warmup_steps`` and the limits of ``correct``;
+- for a new family, ``benchmark/systems/<family>.py``: a ``Cell``
+  (``CellBase``) that builds the port with the benchmark's weights and
+  runs a clip (``run_clip``), gives ``facts()`` (the GEMM operations of
+  a step), ``density()``, ``check()`` and ``controls`` (the precision
+  controls it takes); its plain reference under ``benchmark/reference/``
+  and its operation counts under ``benchmark/flops/``; and
+  ``benchmark/tests/tiny/<family>.py``, the tiny CPU size of its cells
+  and the faults the check tests plant (``tiny``, ``state_unchanged``,
+  ``wrap_output``);
+- ``BENCHMARK.json``: the ``configs`` and ``workloads`` entries, and the
+  cell in the ``workloads`` lists of the per-layer metrics it reports (a
+  new metric: ``benchmark/metrics/<name>.py``).
+
+K1 and D need no fact: the probe prices what the window launched.
 """
 
 from __future__ import annotations
@@ -153,7 +180,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     break the timed path before the window."""
     import torch
 
-    from benchmark import tracing
+    from benchmark import clock, tracing
 
     if workload is None:
         workload, config = load_cell(name)
@@ -176,6 +203,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     warmup = cell.warmup_steps
     st = dict(start=None, end=None, steps=0, clip=0)
     probe = tracing.Probe(cuda) if trace else None
+    clocks = clock.ClockSampler(clock.nvml_index(device)) if cuda else None
 
     def on_step(i):
         if st["start"] is None:
@@ -193,6 +221,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
                     torch.cuda.reset_peak_memory_stats(device)
                 if probe is not None:
                     probe.begin()
+                if clocks is not None:
+                    clocks.start()
             return
         st["steps"] += 1
         if time.perf_counter() - st["start"] >= seconds:
@@ -211,6 +241,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
         pass
     finally:
         builds.stop()
+        if clocks is not None:
+            clocks.stop()
+        if probe is not None:
+            probe.end()
     window_s = st["end"] - st["start"]
     setup_s = st["start"] - _T0
     # set-up by part: imports, weights and model, the first step (curve
@@ -228,8 +262,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
                          "kind": (torch.cuda.get_device_name(device)
                                   if cuda else "cpu"),
                          "count": 1, "memory_peak_bytes": peak}}
+    if clocks is not None:
+        result["device"].update(clocks.summary())
     if probe is not None:
-        probe.end()
         ctx = probe.context(cell, st["steps"], window_s)
         ctx["density"] = cell.density()
         result["metrics"] = {}

@@ -17,12 +17,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class CellBase:
     """``reference`` is the family's reference module (``param_groups``);
-    ``tie`` the family's aligned-attention init of a weight group."""
+    ``tie`` the family's aligned-attention init of a weight group;
+    ``controls`` the precision controls (``run.py --control``) the family
+    takes."""
 
     reference = None
+    controls = ("fp8ref",)
 
     def __init__(self, config: dict, workload: dict, seed: int, device,
                  control: str | None):
+        if control not in (None, *self.controls):
+            raise ValueError(f"control {control!r}: this family takes "
+                             f"{self.controls}")
         self.config, self.workload, self.seed = config, workload, seed
         self.control = control
         self.device = torch.device(device)

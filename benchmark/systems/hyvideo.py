@@ -35,6 +35,8 @@ class Cell(CellBase):
     """One HunyuanVideo cell on one device."""
 
     reference = ref
+    # fp8: the sampler's own fp8 weight path
+    controls = ("fp8", "fp8ref")
 
     def __init__(self, config: dict, workload: dict, seed: int, device,
                  control: str | None = None):
@@ -96,8 +98,6 @@ class Cell(CellBase):
 
     def facts(self) -> dict:
         return {"gemm_flop_per_step": hy_flops.gemm_flop(
-                    self.config, self.latent_shape, self._text_len()),
-                "dense_launch": hy_flops.dense_launches(
                     self.config, self.latent_shape, self._text_len())}
 
     def _grid(self):

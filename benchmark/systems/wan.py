@@ -47,9 +47,6 @@ class Cell(CellBase):
         from jenga_tpu_torch.pipelines.wan_t2v import WanT2VOptions
         from jenga_tpu_torch.runtime import WanSampler
 
-        if control not in (None, "fp8ref"):
-            raise ValueError(f"control {control!r}: Wan's sampler has no "
-                             "fp8 path; its control is fp8ref")
         super().__init__(config, workload, seed, device, control)
         model_cfg = {k: config[k] for k in MODEL_KEYS}
         model_cfg["patch_size"] = tuple(model_cfg["patch_size"])
@@ -113,8 +110,6 @@ class Cell(CellBase):
 
     def facts(self) -> dict:
         return {"gemm_flop_per_step": wan_flops.gemm_flop(
-                    self.config, self.latent_shape),
-                "dense_launch": wan_flops.dense_launches(
                     self.config, self.latent_shape)}
 
     @torch.inference_mode()

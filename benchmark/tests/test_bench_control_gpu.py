@@ -4,26 +4,28 @@ three seeds each.
 
 A bf16 configuration's control is fp8: the reference computed with every
 GEMM operand and the attention's q, k and v rounded to e4m3, put in the
-program's place (``--control fp8ref``), and, for HunyuanVideo, whose
-sampler has an fp8 weight path of its own, the program with that path
-switched on (``--control fp8``). Each run is the harness's own command
-with a short window. Run on the card with ``python -m pytest
+program's place (``--control fp8ref``), and, for a family whose sampler
+has an fp8 weight path of its own (HunyuanVideo), the program with that
+path switched on (``--control fp8``): each cell of ``BENCHMARK.json``
+with every control its family's ``Cell.controls`` names. Each run is the
+harness's own command with a short window. Run on the card with ``python -m pytest
 benchmark/tests -m gpu``; the readings the limits were set from are in
 PERF.md.
 """
 
+import importlib
 import json
 import subprocess
 import sys
 
 import pytest
 
+import _tiny
 from _tiny import ROOT
 
-CONTROLS = [("wan13b-480p-carved", "fp8ref"),
-            ("wan13b-480p-dense", "fp8ref"),
-            ("hy-720p125f-carved", "fp8"),
-            ("hy-720p125f-carved", "fp8ref")]
+CONTROLS = [(cell, control) for cell in _tiny.CELLS
+            for control in importlib.import_module(
+                f"benchmark.systems.{_tiny.family(cell)}").Cell.controls]
 SEEDS = (2100000001, 2200000002, 2300000003)
 
 

@@ -31,9 +31,6 @@ def test_roofline_hand_counts():
 def test_wan_token_counts():
     _, c = _tiny.run.load_cell("wan13b-480p-carved")
     assert wan_flops.tokens(c, (16, 21, 60, 104)) == (32760, 32768, 512)
-    d = wan_flops.dense_launches(c, (16, 21, 60, 104))
-    assert d["short"][0] == 4 * 2 * 12 * 32768 * 512 * 128
-    assert d["long"][0] == 4 * 2 * 12 * 32768 * 32768 * 128
 
 
 @contextlib.contextmanager
@@ -54,7 +51,7 @@ def _counting():
 
 def test_wan_gemm_count_matches_the_model():
     from jenga_tpu_torch.models.wan import WanConfig, WanDiT, make_wan_carve
-    w, c = _tiny.wan()
+    w, c = _tiny.tiny("wan13b-480p-carved")
     cfg = WanConfig(**{k: (tuple(v) if isinstance(v, list) else v)
                        for k, v in c.items() if k in
                        WanConfig.__dataclass_fields__})
@@ -73,7 +70,7 @@ def test_wan_gemm_count_matches_the_model():
 def test_hyvideo_gemm_count_matches_the_model():
     from jenga_tpu_torch.models.hyvideo import (HYVideoConfig, HYVideoDiT,
                                                 make_hy_carve)
-    w, c = _tiny.hyvideo()
+    w, c = _tiny.tiny("hy-720p125f-carved")
     cfg = HYVideoConfig(**{k: (tuple(v) if isinstance(v, list) else v)
                            for k, v in c.items() if k in
                            HYVideoConfig.__dataclass_fields__})

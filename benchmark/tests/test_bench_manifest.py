@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, and every file of a
 cell found by name."""
 
+import importlib
 import json
 import re
 
@@ -18,6 +19,15 @@ CELLS = [w["name"] for w in MANIFEST["workloads"]]
 
 def _line(text):
     return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
+
+
+def four_chip_cells_allowed(chips) -> bool:
+    """Each cell asks for 1 or 4 chips, and at most a quarter of the
+    cells, rounded down, ask for 4; one always may."""
+    chips = list(chips)
+    fours = sum(c == 4 for c in chips)
+    return (all(c in (1, 4) for c in chips)
+            and fours <= max(1, len(chips) // 4))
 
 
 def test_keys_and_command():
@@ -65,13 +75,21 @@ def test_configs_and_cells():
         assert all(NAME.match(k) for k in c["reduced"])
     pairs = [(w["config"], w["traffic"]) for w in MANIFEST["workloads"]]
     assert len(pairs) == len(set(pairs))
+    assert four_chip_cells_allowed(w["chips"] for w in MANIFEST["workloads"])
     for w in MANIFEST["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and _line(w["why"])
+        assert _line(w["why"])
         workload, config = run.load_cell(w["name"])
         assert workload["config"] == w["config"]
         assert workload["chips"] == w["chips"]
-        assert config["family"] in ("wan", "hyvideo")
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ([1], True), ([4], True), ([1, 4], True), ([1, 1, 1, 4], True),
+    ([1, 4, 4], False), ([1] * 6 + [4, 4], True), ([1] * 5 + [4] * 3, False),
+    ([1, 2], False), ([1, 1, 1, 8], False)])
+def test_the_four_chip_share(chips, ok):
+    assert four_chip_cells_allowed(chips) is ok
 
 
 def test_metrics():
@@ -96,11 +114,15 @@ def test_metrics():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(cell):
-    """Each cell's workload, configuration, system and every per-layer
-    metric it reports are found by name; every cell reports a per-layer
-    metric."""
+    """Each cell's workload, configuration, system (a module named by its
+    family that defines ``Cell``) and every per-layer metric it reports
+    are found by name; every cell reports a per-layer metric."""
     workload, config = run.load_cell(cell)
-    assert (ROOT / "benchmark" / "systems" / f"{config['family']}.py").exists()
+    family = config["family"]
+    assert NAME.match(family)
+    assert (ROOT / "benchmark" / "systems" / f"{family}.py").exists()
+    system = importlib.import_module(f"benchmark.systems.{family}")
+    assert isinstance(system.Cell, type)
     names = run.layer_metrics(cell)
     assert names
     for name in names:

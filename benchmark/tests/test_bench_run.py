@@ -64,9 +64,8 @@ SCRIPT = """
 import json, sys
 sys.path.insert(0, {tests!r})
 import _tiny
-for make, cell in ((_tiny.wan, "wan13b-480p-carved"),
-                   (_tiny.hyvideo, "hy-720p125f-carved")):
-    _tiny.run_tiny(make, cell, trace=True)
+for cell in _tiny.CELLS:
+    _tiny.run_tiny(cell, trace=True)
 from benchmark import run
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 print(json.dumps(run.forbidden_modules()))
@@ -74,9 +73,9 @@ print(json.dumps(run.forbidden_modules()))
 
 
 def test_a_whole_run_loads_no_jax():
-    """Every module a traced run of each family loads, compared by its
-    top-level name with jax, jaxlib, flax and jenga_tpu: jenga_tpu_torch
-    is loaded and is not matched."""
+    """Every module a traced run of each cell of ``BENCHMARK.json`` loads,
+    compared by its top-level name with jax, jaxlib, flax and jenga_tpu:
+    jenga_tpu_torch is loaded and is not matched."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-c", SCRIPT.format(
         tests=str(ROOT / "benchmark" / "tests"))], cwd=ROOT,

@@ -1,26 +1,40 @@
 """The traced window: ``torch.profiler`` over the window's steps, the
-program's launch counters, and the selection K1 was given.
+program's launch counters, and the shapes K1 and D were given.
 
 ``Probe.arm`` starts the profiler one step before the window, in its
 warm-up phase (the tracer starts and its records are dropped), so that
 the window holds no start-up of the tracer; ``begin`` makes it record
 and ``end`` stops it once the window's last step has synchronised.
-Between ``begin`` and ``end`` the block-sparse launches are observed at
-the call into the kernel (``ops.sparse_dispatch`` hands each launch its
-block lists, made anew for each launch): each launch's list lengths are
-kept, and once the window has closed the (query block, key block) tiles
-each launch computed are summed from them, so K1's bound counts the
-blocks these inputs selected and the window holds no work of the probe.
-(A launch with membership words, ``all_member=False``, which no cell
-runs yet, has its tiles summed on the device at the call.) Kernel
-classes follow ``jenga_tpu_torch/profile_step.py`` (``_kernel_class``,
-copied): ``bsa_kernel`` is K1, ``dense_kernel`` D (both routes),
-cuBLAS's names GEMMs, the rest "other".
+Between ``begin`` and ``end`` the attention launches are observed at the
+call into each kernel, on the host alone:
+
+- K1: ``ops.sparse_dispatch`` hands each launch its block lists, made
+  anew for each launch; each launch's list lengths are kept, and once
+  the window has closed the (query block, key block) tiles each launch
+  computed are summed from them, so K1's bound counts the blocks these
+  inputs selected and the window holds no work of the probe. (A launch
+  with membership words, ``all_member=False``, which no cell runs yet,
+  has its tiles summed on the device at the call.)
+- D: every call into ``flash_attention.dense_attention_forward`` (each
+  forward launch of D, either route) keeps its batch, heads, query rows,
+  key rows, head dim and route, and each launch is priced at its own
+  shape once the window has closed (``dense_totals``). The launches
+  observed have to be the counters' (``dense_attention.launches`` and
+  ``.short_launches``): where they are not, D has no price and the
+  metrics that need one read nothing.
+
+``end`` undoes both observations; the harness calls it on every path
+out of the window. Kernel classes follow
+``jenga_tpu_torch/profile_step.py`` (``_kernel_class``, copied):
+``bsa_kernel`` is K1, ``dense_kernel`` D (both routes), cuBLAS's names
+GEMMs, the rest "other".
 """
 
 from __future__ import annotations
 
 import collections
+import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +65,37 @@ def _counters():
             "d_short": fa.dense_attention.short_launches}
 
 
+class DenseCall(NamedTuple):
+    """One call into D: whether it launched the kernel (CUDA operands),
+    its route, and its shape."""
+    cuda: bool
+    short: bool
+    batch: int
+    heads: int
+    q_rows: int
+    k_rows: int
+    head_dim: int
+    itemsize: int
+
+
+def dense_totals(calls, launches: dict):
+    """(operations, bound seconds) of D's launches among ``calls``, each
+    priced at its own shape, keys counted over the key tensor's length;
+    (None, None) where the launches and short launches observed differ
+    from the counters' deltas ``launches["d"]`` and ``["d_short"]``."""
+    launched = [c for c in calls if c.cuda]
+    seen = (len(launched), sum(c.short for c in launched))
+    if seen != (launches["d"], launches["d_short"]):
+        return None, None
+    flop = bound = 0.0
+    for c in launched:
+        f, nbytes = R.dense_attention(c.batch, c.heads, c.q_rows, c.k_rows,
+                                      c.head_dim, c.itemsize)
+        flop += f
+        bound += R.bound_s(f, nbytes)
+    return flop, bound
+
+
 def _union(spans):
     """Merged [start, end] intervals of a sorted list."""
     out = []
@@ -67,7 +112,9 @@ class Probe:
         self.cuda = cuda
         self.prof = None
         self.k1 = []            # (tiles, bytes, head dim) of each launch
+        self.d = []             # a DenseCall of each call into D
         self._rows = {}
+        self._patches = []      # (module, name, original) while observing
 
     def arm(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -79,11 +126,16 @@ class Probe:
         self.prof.start()
 
     def begin(self):
+        from jenga_tpu_torch.ops import flash_attention as fa
         from jenga_tpu_torch.ops import sparse_dispatch as sd
         self.prof.step()
         self.before = _counters()
-        self._sd, self._orig = sd, sd.block_sparse_attention
+        self._orig = sd.block_sparse_attention
+        self._orig_d, self._route = fa.dense_attention_forward, fa.dense_route
+        self._patches = [(sd, "block_sparse_attention", self._orig),
+                         (fa, "dense_attention_forward", self._orig_d)]
         sd.block_sparse_attention = self._observed
+        fa.dense_attention_forward = self._observed_d
 
     def _observed(self, q, k, v, indices, counts, seqlens, *, q_rows=1,
                   members=None, **kw):
@@ -100,10 +152,22 @@ class Probe:
         return self._orig(q, k, v, indices, counts, seqlens, q_rows=q_rows,
                           members=members, **kw)
 
+    def _observed_d(self, q, k, v, **kw):
+        b, h, sq, hd = q.shape
+        skv = k.shape[2]
+        self.d.append(DenseCall(q.is_cuda, self._route(skv) == "short", b,
+                                h, sq, skv, hd, q.element_size()))
+        return self._orig_d(q, k, v, **kw)
+
     def end(self):
-        self._sd.block_sparse_attention = self._orig
+        """Stop observing and recording: on every path out of the window,
+        also one that raised before ``begin`` or ``arm``."""
+        for module, name, original in self._patches:
+            setattr(module, name, original)
+        self._patches = []
         self.after = _counters()
-        self.prof.stop()
+        if self.prof is not None:
+            self.prof.stop()
 
     def context(self, cell, steps: int, window_s: float) -> dict:
         """What the metric readers read."""
@@ -129,22 +193,20 @@ class Probe:
                 flop = R.attention_tiles_flop(n, hd)
                 k1_flop += flop
                 k1_bound += R.bound_s(flop, nbytes)
-        facts = cell.facts()
         launches = {k: self.after[k] - self.before[k] for k in self.after}
-        short = launches["d_short"]
-        long_ = launches["d"] - short
-        d_flop = d_bound = 0.0
-        for n, key in ((short, "short"), (long_, "long")):
-            if n:
-                flop, nbytes = facts["dense_launch"][key]
-                d_flop += n * flop
-                d_bound += n * R.bound_s(flop, nbytes)
+        d_flop, d_bound = dense_totals(self.d, launches)
+        seen = [c for c in self.d if c.cuda]
+        print(f"dense launches: observed {len(seen)} "
+              f"({sum(c.short for c in seen)} short), counted "
+              f"{launches['d']} ({launches['d_short']} short)"
+              + ("" if d_flop is not None else "; D is not priced"),
+              file=sys.stderr)
         return {
             "steps": steps, "window_s": window_s, "busy_s": busy_s,
             "device_ms": ms, "launches": launches,
             "k1_flop": k1_flop, "k1_bound_s": k1_bound,
             "d_flop": d_flop, "d_bound_s": d_bound,
-            "gemm_flop": facts["gemm_flop_per_step"] * steps,
+            "gemm_flop": cell.facts()["gemm_flop_per_step"] * steps,
             "peak_flops": R.PEAK_FLOPS,
             "breakdown": {
                 "device_ops": [[n, t / 1e3]
